@@ -10,133 +10,84 @@
 // step is NaN.  Output per feature: [u, v, mean |patch - T|] at the last
 // position.
 //
-// What bounds it on the card: latency of dependent image gathers, not
-// FLOPs or bytes.  An iteration reads 4 S^2 texels and does ~10 S^2 FLOPs,
-// then every lane waits on a warp reduction before the next iteration may
-// start; the whole level image (at most 752 x 480 x 4 B, 1.4 MB) stays in L2.
+// What bounds it on the card: the latency of a dependent chain, not FLOPs or
+// bytes.  An iteration reads 4 S^2 texels and does ~10 S^2 FLOPs, then every
+// lane waits on a warp reduction before it knows where the next iteration
+// reads; the whole level image (at most 752 x 480 x 4 B, 1.4 MB) stays in L2.
 //
 // Design: one warp per feature, four warps per block.  Each lane keeps its
 // share of the template and its gradients (ceil(S^2 / 32) pixels) in
-// registers for the whole loop, reads its taps straight from the image
-// through the read-only cache with edge-clamped integer coordinates (the
-// same values as edge-replicated padding), and the two sums and the final
-// error are reduced with __shfl_xor_sync.  The xor butterfly leaves the
-// bit-identical sum in every lane, so the convergence test is uniform across
-// the warp and each warp leaves its loop on its own -- no lock-step across
-// features.  The TPU kernel's structure (8 features per program, a DMA'd
-// 40 x 256 VMEM window and lane-roll addressing) has no counterpart here.
+// registers for the whole loop.  The loop itself is lk::lk_level of
+// lk_common.cuh, shared with the fused track kernel (lk_track.cu): the
+// target window sits in shared memory, filled once by cp.async from
+// edge-clamped image coordinates (the same values as edge-replicated padding)
+// while the template is read into registers, the two sums of
+// an iteration are reduced in one interleaved __shfl_xor_sync butterfly that
+// leaves the bit-identical sum in every lane, so the convergence test is
+// uniform across the warp and each warp leaves its loop on its own -- no
+// lock-step across features.  The TPU kernel's structure (8 features per
+// program, a DMA'd 40 x 256 VMEM window and lane-roll addressing) has no
+// counterpart here.
 
 #include <cuda_runtime.h>
 
+#include "lk_common.cuh"
+
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
-constexpr int kMaxS = 15;
-constexpr int kPerLane = (kMaxS * kMaxS + 31) / 32;
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
-}
-
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
-// Integer patch corner from a floored coordinate; NaN maps to 0 (the
-// fractional part is NaN then, so the patch is NaN whatever the corner).
-__device__ __forceinline__ int corner(float fl, int extent) {
-  return isnan(fl) ? 0 : static_cast<int>(fminf(fmaxf(fl, -1.0f), static_cast<float>(extent)));
-}
-
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+template <int S>
+__global__ void __launch_bounds__(lk::kWarpsPerBlock * 32)
 lk_iterate_kernel(const float* __restrict__ img, const float* __restrict__ uv_init,
                   const float* __restrict__ T, const float* __restrict__ gx,
                   const float* __restrict__ gy, const float* __restrict__ nrm,
-                  float* __restrict__ out, int N, int S, int H, int W, int iters,
-                  float eps2) {
+                  float* __restrict__ out, int N, int H, int W, int iters, float eps2) {
+  extern __shared__ float smem[];
+  constexpr int SS = S * S;
   const int lane = threadIdx.x & 31;
-  const int f = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int f = blockIdx.x * lk::kWarpsPerBlock + warp;
   if (f >= N) return;  // uniform within the warp
-  const int SS = S * S;
-  const int half = (S - 1) / 2;
 
-  float t[kPerLane], tx[kPerLane], ty[kPerLane];
-  int pr[kPerLane], pc[kPerLane];
-  bool in[kPerLane];
-#pragma unroll
-  for (int k = 0; k < kPerLane; ++k) {
-    const int p = lane + 32 * k;
-    in[k] = p < SS;
-    const int q = in[k] ? p : 0;
-    pr[k] = q / S;
-    pc[k] = q - pr[k] * S;
-    const size_t o = static_cast<size_t>(f) * SS + q;
-    t[k] = in[k] ? T[o] : 0.0f;
-    tx[k] = in[k] ? gx[o] : 0.0f;
-    ty[k] = in[k] ? gy[o] : 0.0f;
-  }
-  const float a = nrm[4 * f + 0];
-  const float b = nrm[4 * f + 1];
-  const float c = nrm[4 * f + 2];
-  const float inv_det = nrm[4 * f + 3];
   float u = uv_init[2 * f + 0];
   float v = uv_init[2 * f + 1];
+  lk::Window win;
+  win.side = lk::window_side(S, lk::kMargin);
+  win.margin = lk::kMargin;
+  win.data = smem + warp * win.side * win.side;
+  win.prefetch_at(img, H, W, S, u, v, lane);  // lands while the template is read
 
-  // bilinear patch value of this lane's pixel k at patch centre (u, v)
-  auto sample = [&](int k, int ix, int iy, float fx, float fy) -> float {
-    const int r0 = clampi(iy + pr[k], 0, H - 1);
-    const int r1 = clampi(iy + pr[k] + 1, 0, H - 1);
-    const int c0 = clampi(ix + pc[k], 0, W - 1);
-    const int c1 = clampi(ix + pc[k] + 1, 0, W - 1);
-    const float p00 = __ldg(img + r0 * W + c0);
-    const float p01 = __ldg(img + r0 * W + c1);
-    const float p10 = __ldg(img + r1 * W + c0);
-    const float p11 = __ldg(img + r1 * W + c1);
-    return p00 * (1.0f - fx) * (1.0f - fy) + p01 * fx * (1.0f - fy)
-         + p10 * (1.0f - fx) * fy + p11 * fx * fy;
-  };
-
-  float step2 = INFINITY;
-  for (int it = 0; it < iters && step2 > eps2; ++it) {
-    const float lx = u - half, ly = v - half;
-    const float flx = floorf(lx), fly = floorf(ly);
-    const float fx = lx - flx, fy = ly - fly;
-    const int ix = corner(flx, W), iy = corner(fly, H);
-    float bx = 0.0f, by = 0.0f;
+  const lk::Lanes<S> L(lane);
+  lk::Template<S> tp;
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      if (in[k]) {
-        const float e = sample(k, ix, iy, fx, fy) - t[k];
-        bx += e * tx[k];
-        by += e * ty[k];
-      }
-    }
-    bx = warp_sum(bx);
-    by = warp_sum(by);
-    const float du = (c * bx - b * by) * inv_det;
-    const float dv = (a * by - b * bx) * inv_det;
-    u -= du;
-    v -= dv;
-    step2 = du * du + dv * dv;  // NaN compares false and ends the loop
+  for (int k = 0; k < lk::Lanes<S>::kPerLane; ++k) {
+    const size_t o = static_cast<size_t>(f) * SS + L.row[k] * S + L.col[k];
+    tp.t[k] = L.in[k] ? T[o] : 0.0f;
+    tp.gx[k] = L.in[k] ? gx[o] : 0.0f;
+    tp.gy[k] = L.in[k] ? gy[o] : 0.0f;
   }
-
-  const float lx = u - half, ly = v - half;
-  const float flx = floorf(lx), fly = floorf(ly);
-  const float fx = lx - flx, fy = ly - fly;
-  const int ix = corner(flx, W), iy = corner(fly, H);
-  float es = 0.0f;
-#pragma unroll
-  for (int k = 0; k < kPerLane; ++k) {
-    if (in[k]) es += fabsf(sample(k, ix, iy, fx, fy) - t[k]);
-  }
-  es = warp_sum(es);
+  tp.a = nrm[4 * f + 0];
+  tp.b = nrm[4 * f + 1];
+  tp.c = nrm[4 * f + 2];
+  tp.inv_det = nrm[4 * f + 3];
+  const float err = lk::lk_level<S>(img, H, W, lane, L, tp, win, iters, eps2, u, v);
   if (lane == 0) {
     out[3 * f + 0] = u;
     out[3 * f + 1] = v;
-    out[3 * f + 2] = es / static_cast<float>(SS);
+    out[3 * f + 2] = err;
   }
+}
+
+template <int S>
+int launch(const float* img, const float* uv_init, const float* T, const float* gx,
+           const float* gy, const float* nrm, float* out, int N, int H, int W, int iters,
+           float eps2, cudaStream_t stream) {
+  const int side = lk::window_side(S, lk::kMargin);
+  const size_t smem = sizeof(float) * lk::kWarpsPerBlock * side * side;  // 9 KB at S = 15
+  const dim3 block(lk::kWarpsPerBlock * 32);
+  const dim3 grid((N + lk::kWarpsPerBlock - 1) / lk::kWarpsPerBlock);
+  lk_iterate_kernel<S><<<grid, block, smem, stream>>>(img, uv_init, T, gx, gy, nrm, out, N, H, W,
+                                                      iters, eps2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -149,10 +100,7 @@ extern "C" int lk_iterate_launch(const float* img, const float* uv_init, const f
                                  float* out, int N, int S, int H, int W, int iters,
                                  float eps2, void* stream) {
   if (N <= 0) return 0;
-  if (S < 1 || S > kMaxS || H < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid((N + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  lk_iterate_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      img, uv_init, T, gx, gy, nrm, out, N, S, H, W, iters, eps2);
-  return static_cast<int>(cudaGetLastError());
+  if (H < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
+  LK_RETURN_FOR_PATCH_SIDE(S, launch, img, uv_init, T, gx, gy, nrm, out, N, H, W, iters, eps2,
+                           static_cast<cudaStream_t>(stream))
 }

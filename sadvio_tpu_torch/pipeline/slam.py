@@ -38,7 +38,7 @@ from sadvio_tpu_torch.frontend import detect, epipolar, eskf as eskf_mod, klt, p
 from sadvio_tpu_torch.models import cameras, imu as imu_mod
 from sadvio_tpu_torch.pipeline.config import SLAMConfig
 from sadvio_tpu_torch.utils import geometry as geo
-from sadvio_tpu_torch.utils.struct import Struct, tree_map
+from sadvio_tpu_torch.utils.struct import Struct, entry_device, tree_map
 
 
 @dataclass
@@ -88,11 +88,12 @@ def _set(x, i, val):
 
 
 class StereoSLAM:
-    """Stereo VO / stereo VIO pipeline on one device."""
+    """Stereo VO / stereo VIO pipeline on one device (None: the CUDA card)."""
 
     def __init__(self, rig: Rig, config: SLAMConfig, imu_params=None, seed=0, device=None):
         _check_config(config)
-        self.device = torch.device(device) if device is not None else rig.t_f_s.device
+        self.device = entry_device(device)
+        self.klt_engine = "fused"  # klt.track engine: "fused" | "levels"
         self.rig = rig.to(self.device)
         self.cfg = config
         self.caps = config.caps
@@ -146,6 +147,10 @@ class StereoSLAM:
                      for c in range(self.C))
 
     def _template_cache(self, pyr_new, uv_kf0):
+        """Keyframe-rate template windows for the "levels" engine; the fused
+        kernel reads the keyframe pyramid itself."""
+        if self.klt_engine == "fused":
+            return None
         return klt.template_windows_pyr(pyr_new[0], uv_kf0, self.caps.pyr_levels,
                                         self.caps.klt_radius)
 
@@ -179,7 +184,7 @@ class StereoSLAM:
 
         uv1, ok, _ = klt.track(pyr_kf[0], pyr_new[0], tracks.uv_kf[0], init, tracks.valid[0],
                                levels=self.caps.pyr_levels, radius=self.caps.klt_radius,
-                               warp=A, tmpl_wins=kf_tmpl)
+                               warp=A, tmpl_wins=kf_tmpl, engine=self.klt_engine)
 
         lmk_ok = ok & has3d & window.lmk_mask
         R_new, t_new, inliers, pnp_ok, _ = pnp.pnp_ransac(
@@ -287,7 +292,8 @@ class StereoSLAM:
 
         # 2. stereo track cam0 -> cam1 and the static epipolar gate
         uv1, ok1, _ = klt.track(pyr_new[0], pyr_new[1], new_uv0, new_uv0, new_v0,
-                                levels=self.caps.pyr_levels, radius=self.caps.klt_radius)
+                                levels=self.caps.pyr_levels, radius=self.caps.klt_radius,
+                                engine=self.klt_engine)
         R_01, t_01 = geo.pose_compose(*geo.pose_inverse(Rfs[0], tfs[0]), Rfs[1], tfs[1])
         r0 = cam0.backproject(new_uv0)
         r1 = cam1.backproject(uv1)

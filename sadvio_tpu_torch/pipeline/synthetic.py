@@ -17,6 +17,7 @@ import torch
 
 from sadvio_tpu_torch.data.window import Rig
 from sadvio_tpu_torch.models import cameras, imu as imu_mod
+from sadvio_tpu_torch.utils.struct import entry_device
 
 
 class FrameData(NamedTuple):
@@ -38,8 +39,10 @@ class SyntheticWorld(NamedTuple):
 
 
 def make_rig(width=320, height=240, baseline=0.11, f=200.0, camera="pinhole", device=None):
+    """Stereo pinhole rig on ``device`` (None: the CUDA card)."""
     if camera != "pinhole":
         raise NotImplementedError(f"camera model {camera!r} is not ported yet")
+    device = entry_device(device)
     C = 2
     full = lambda x: torch.full((C,), float(x), dtype=torch.float32, device=device)
     model = cameras.Pinhole(fx=full(f), fy=full(f), cx=full(width / 2.0),
@@ -93,9 +96,11 @@ def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=
                device=None) -> SyntheticWorld:
     """Blob-wall world seen by a stereo pinhole rig on the default trajectory.
 
-    Images are rendered on ``device`` and returned as numpy arrays."""
+    Images are rendered on ``device`` (None: the CUDA card) and returned as
+    numpy arrays."""
     from scipy.spatial.transform import Rotation
 
+    device = entry_device(device)
     rng = np.random.default_rng(seed)
     rig = make_rig(width, height, device=device)
     params = imu_mod.ImuParams.euroc()

@@ -45,3 +45,16 @@ def tree_map(fn, tree, *rest):
 def select(cond, a, b):
     """Leafwise ``torch.where(cond, a, b)`` over two equal containers."""
     return tree_map(lambda x, y: torch.where(cond, x, y), a, b)
+
+
+def entry_device(device=None) -> torch.device:
+    """Device of an entry point: the CUDA card unless the caller names one.
+
+    ``None`` never means the CPU: without a card it raises, and a caller
+    who wants the CPU says ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this entry point runs on the card by default; "
+                           "pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")

@@ -18,7 +18,7 @@ torch.set_num_threads(2)
 @pytest.fixture(scope="module")
 def worlds():
     kw = dict(seed=3, n_frames=4, width=320, height=240, n_points=200, imu_noise=True)
-    return jsyn.make_world(**kw), tsyn.make_world(**kw)
+    return jsyn.make_world(**kw), tsyn.make_world(**kw, device="cpu")
 
 
 def test_ground_truth_and_imu_equal(worlds):
