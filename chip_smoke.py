@@ -2,22 +2,32 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the LK kernels from
 the sources in this checkout, checks each against its plain PyTorch version
 at the main path's shapes, then drives the flagship stereo-VIO main path
-(``StereoSLAM(rig, cfg, imu_params).run``) at EuRoC shapes and checks the
-trajectory against ground truth.
+(``StereoSLAM(rig, cfg, imu_params).run``) at EuRoC shapes, the long-run
+path (global map, pose graph with loop closure, mesh) on a revisit world,
+and the matcher / epipolar front end, and checks each against ground truth.
 
     python3 chip_smoke.py             # the whole check
     python3 chip_smoke.py --measure   # adds lk_track's cycles per phase, the
                                       # end-to-end comparison of the two KLT
-                                      # engines, the stage tables and the
-                                      # kernels-per-frame count
+                                      # engines, the stage tables, the
+                                      # kernels-per-frame count and the kernel
+                                      # counts of the long-run stages
+    python3 chip_smoke.py --sweep     # adds the long run at other lengths
+                                      # and seeds, failures printed only
     python3 chip_smoke.py --parent DIR  # adds lk_iterate of the checkout
                                         # unpacked under DIR, timed in turns
 
 Phases: environment; build; ``lk_iterate`` against ``lk_iterate_ref`` on the
 four pyramid levels; ``lk_track`` against ``lk_track_ref`` and against the
 five-launch ``track(engine="levels")`` in the frame-track and stereo-track
-call shapes; the 130-frame main path on ``engine="fused"``; the first 30
-frames again on ``engine="levels"``.  No phase catches its own failure.
+call shapes, and at ``levels=1`` in the matcher's polish call shape; the
+130-frame main path on ``engine="fused"``; its first frames again on
+``engine="levels"``; the long-run path (752x480, K=11, L=512, ``global_map``,
+``pose_graph``, ``mesh3d``) over an excursion that returns to its start, with
+its new stages timed; ``tracker: matcher`` and ``pose_estimator: epipolar``
+runs; the marginalization products of a window captured at a roll of the
+long run, evaluated on the card and on the CPU and compared.  No phase
+catches its own failure.
 
 Kernel times are device times: (a) the kernel's self time from
 ``torch.profiler``; (b) CUDA events around a replayed CUDA graph of 50
@@ -44,7 +54,12 @@ N_FEATURES = 512  # landmark slots L of the main path
 RADIUS = 5  # KLT radius: 11 x 11 patches
 LEVELS = 4
 N_FRAMES = 130  # VIInit fires and the window rolls within this run
-N_FRAMES_LEVELS = 30  # the earlier per-level engine's short path
+N_FRAMES_LEVELS = 20  # the earlier per-level engine's short path
+N_FRAMES_FRONTEND = 30  # the matcher and the epipolar runs
+# the long-run path: an excursion of 2.2 m along a 16 m wall and back
+LONG_FRAMES, LONG_SEED, LONG_POINTS = 320, 11, 640
+LONG_SWEEP = ((240, 11), (400, 11), (320, 3))  # other (frames, seed), under --sweep
+LONG_CAPTURE_ROLL = 8  # the roll whose window the marginalization check takes
 UV_TOL_PX = 5e-3  # kernel vs plain, good features (fp32, different sum order)
 ERR_TOL = 1e-3
 ATE_TOL_M = 0.05
@@ -178,10 +193,11 @@ def bound_lk_iterate(img1, uv, T, gx, gy, nrm, iters):
                   N * S * S * FLOP_PER_PIXEL_ITER * (iters + 1))
 
 
-def bound_lk_track(pyr0, pyr1, uv0, uv_init, valid0, warp, bwd_levels):
+def bound_lk_track(pyr0, pyr1, uv0, uv_init, valid0, warp, bwd_levels, levels=LEVELS):
     N, S = uv0.shape[0], 2 * RADIUS + 1
-    ins = [*pyr0, *pyr1, uv0, uv_init, valid0] + ([] if warp is None else [warp])
-    passes = [ITERS if lvl == 0 else ITERS_COARSE for lvl in range(LEVELS)]
+    ins = [*pyr0[:levels], *pyr1[:levels], uv0, uv_init, valid0]
+    ins += [] if warp is None else [warp]
+    passes = [ITERS if lvl == 0 else ITERS_COARSE for lvl in range(levels)]
     passes += [ITERS_COARSE] * bwd_levels
     flop = sum(N * ((S + 2) ** 2 * FLOP_PER_HALO_PIXEL + S * S * FLOP_PER_TEMPLATE_PIXEL
                     + S * S * FLOP_PER_PIXEL_ITER * (it + 1)) for it in passes)
@@ -214,14 +230,21 @@ def phase_build():
         print(f"build: {line}")
 
 
-def make_world(device, n_frames):
+def make_world(device, n_frames, **kw):
     from sadvio_tpu_torch.pipeline import synthetic
 
-    world = synthetic.make_world(seed=5, n_frames=n_frames, width=752, height=480,
-                                 n_points=400, imu_noise=True, device=device)
+    kw = {**dict(seed=5, n_points=400), **kw}
+    world = synthetic.make_world(n_frames=n_frames, width=752, height=480, imu_noise=True,
+                                 device=device, **kw)
     frames = [f._replace(images=np.clip(f.images, 0, 255).astype(np.uint8))
               for f in world.frames]
     return world, frames
+
+
+def make_long_world(device, n_frames=LONG_FRAMES, seed=LONG_SEED):
+    """The revisit world: pan 2.2 m out along a wider wall and come back."""
+    return make_world(device, n_frames, seed=seed, n_points=LONG_POINTS,
+                      trajectory="excursion", wall_x=(-5.0, 11.0))
 
 
 class _ClockSampler:
@@ -322,7 +345,9 @@ def _track_inputs(frames, device, shape):
     warp inside the accepted determinant range, a start a few px off, some
     valid0 false, a few NaN starts, a few features within `radius` of the
     border and a few warps that must count as identity.  "stereo": camera
-    0 -> camera 1 of one frame, identity warp, start at uv0."""
+    0 -> camera 1 of one frame, identity warp, start at uv0.  "polish": the
+    matcher's call, the frame inputs at levels=1 with integer-pixel starts
+    within a pixel and a half of the answer of the 4-level track."""
     from sadvio_tpu_torch.frontend import detect, klt
 
     img = lambda k, c: torch.as_tensor(frames[k].images[c], device=device).float()
@@ -347,7 +372,14 @@ def _track_inputs(frames, device, shape):
     warp[10] = [[np.nan, 0.0], [0.0, 1.0]]
     valid_h = valid0.cpu().numpy() & (rng.uniform(size=N) > 0.1)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
-    return pyr0, pyr1, t(uv0_h.astype(np.float32)), t(init), t(valid_h), t(warp), 1
+    uv0_t, warp_t, valid_t = t(uv0_h.astype(np.float32)), t(warp), t(valid_h)
+    if shape == "polish":
+        uv4, ok4, _ = klt.track(pyr0, pyr1, uv0_t, t(init), valid_t, levels=LEVELS,
+                                radius=RADIUS, warp=warp_t, engine="levels")
+        start = torch.where(ok4[:, None], torch.round(uv4), uv0_t)
+        start = start + t(rng.integers(-1, 2, (N, 2)).astype(np.float32))
+        return pyr0, pyr1, uv0_t, start.contiguous(), valid_t & ok4, warp_t, 1
+    return pyr0, pyr1, uv0_t, t(init), valid_t, warp_t, 1
 
 
 def _same_bits(a, b):
@@ -358,15 +390,16 @@ def _same_bits(a, b):
 
 def phase_track_kernel(frames, device):
     """lk_track vs lk_track_ref and vs track(engine="levels") on the card,
-    in the frame-track and the stereo-track call shapes; times of all three
-    taken in turns."""
+    in the frame-track and the stereo-track call shapes and at levels=1 in
+    the matcher's polish call shape; times of all three taken in turns."""
     from sadvio_tpu_torch.frontend import klt
     from sadvio_tpu_torch.ops import klt_kernel
 
     rows = []
-    for shape in ("frame", "stereo"):
+    for shape in ("frame", "stereo", "polish"):
         pyr0, pyr1, uv0, init, valid0, warp, bwd = _track_inputs(frames, device, shape)
-        kw = dict(levels=LEVELS, radius=RADIUS, iters=ITERS, iters_coarse=ITERS_COARSE,
+        levels = 1 if shape == "polish" else LEVELS
+        kw = dict(levels=levels, radius=RADIUS, iters=ITERS, iters_coarse=ITERS_COARSE,
                   bwd_levels=bwd)
         run_k = lambda **o: klt_kernel.lk_track(pyr0, pyr1, uv0, init, valid0, warp, **kw, **o)
         run_l = lambda: klt.track(pyr0, pyr1, uv0, init, valid0, warp=warp, engine="levels", **kw)
@@ -422,9 +455,9 @@ def phase_track_kernel(frames, device):
                "levels_lk_iterate_device_ms": _kernel_self_ms(tab_l, "lk_iterate_kernel", n_prof),
                "levels_kernels": sum(c for c, _ in tab_l.values()) / n_prof,
                "levels_host_us": _host_us(run_l, n=20),
-               **bound_lk_track(pyr0, pyr1, uv0, init, valid0, warp, bwd)}
+               **bound_lk_track(pyr0, pyr1, uv0, init, valid0, warp, bwd, levels)}
         rows.append(row)
-        print(f"kernel lk_track: {shape} track N={N_FEATURES} S={2 * RADIUS + 1} levels={LEVELS} "
+        print(f"kernel lk_track: {shape} track N={N_FEATURES} S={2 * RADIUS + 1} levels={levels} "
               f"| fused: device {row['ms']:.5f} ms (graph of {GRAPH_LAUNCHES}), profiler self "
               f"{row['profiler_ms']:.5f} ms, as Python launches it {row['python_loop_ms']:.4f} ms, "
               f"host {row['host_us']:.1f} us/call | engine=levels: {row['levels_kernels']:.0f} "
@@ -461,11 +494,63 @@ def _time_stages(slam):
     return log
 
 
-def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profile_frames=()):
+LONG_STAGES = (("detect", "brief_describe"), ("gmap", "resurrect"), ("marg", "marginalize_relative"),
+               ("mesh", "Mesher.update"), ("mesh", "delaunay_triangles"), ("mesh", "zncc_validate"),
+               ("mesh", "raycast_pointcloud"))
+
+
+class _TimedFunctions:
+    """Time stage functions (of a module, or of a class in it) with a
+    synchronised host clock while a run goes: {"module.function": [ms, ...]}.
+    The functions are looked up through their owners at call time, so
+    patching the attribute is enough; the originals are put back on exit."""
+
+    def __init__(self, names=LONG_STAGES):
+        from sadvio_tpu_torch.backend import marginalization as marg
+        from sadvio_tpu_torch.data import globalmap as gmap
+        from sadvio_tpu_torch.frontend import detect
+        from sadvio_tpu_torch.mesh import mesh
+
+        mods = dict(detect=detect, gmap=gmap, marg=marg, mesh=mesh)
+        self.targets = []
+        for m, path in names:
+            *owners, fn = path.split(".")
+            owner = mods[m]
+            for name in owners:
+                owner = getattr(owner, name)
+            self.targets.append((owner, fn))
+        self.log = {f"{m}.{fn}": [] for m, fn in names}
+        self.calls = {}  # the last call's arguments, for replays under the profiler
+
+    def __enter__(self):
+        self.saved = [(owner, fn, getattr(owner, fn)) for owner, fn in self.targets]
+        for (owner, fn, orig), key in zip(self.saved, self.log):
+            setattr(owner, fn, self._wrap(key, orig))
+        return self
+
+    def _wrap(self, key, orig):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            self.log[key].append((time.perf_counter() - t0) * 1e3)
+            self.calls[key] = (orig, a, k)
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, fn, orig in self.saved:
+            setattr(owner, fn, orig)
+
+
+def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profile_frames=(),
+             cfg_kw=None, capture_roll=None):
     """Drive StereoSLAM over `frames` on `engine`; returns the run's record.
     Launch counts are set to 0 just before the first frame and read just
     after the last.  `profile_frames` (first, last) puts torch.profiler
-    around those frames."""
+    around those frames.  `cfg_kw` overrides config keys.  `capture_roll`
+    keeps a copy of what the n-th VIO window roll was given."""
     from sadvio_tpu_torch.ops import klt_kernel
     from sadvio_tpu_torch.pipeline import synthetic
     from sadvio_tpu_torch.pipeline.config import Capacities, SLAMConfig
@@ -474,13 +559,25 @@ def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profil
     cfg = SLAMConfig(slam_mode="bimonovio", max_kf_number=10, min_lmk_number=40,
                      max_movement_parallax=1.0, min_movement_parallax=0.02,
                      async_health=False,
-                     caps=Capacities(**caps))
+                     caps=Capacities(**caps), **(cfg_kw or {}))
     slam = StereoSLAM(world.rig, cfg, imu_params=world.imu_params, device=device)
     slam.klt_engine = engine
+    captured = {}
+    if capture_roll is not None:
+        roll = slam._marg_roll
+
+        def capturing(window, obs, imu, priors, tracks, vio, **k):
+            captured["n"] = captured.get("n", 0) + bool(vio)
+            if vio and captured["n"] == capture_roll:
+                captured["state"] = (window, obs, imu, priors)  # stages replace, never write in place
+            return roll(window, obs, imu, priors, tracks, vio, **k)
+
+        slam._marg_roll = capturing
     stage_log = _time_stages(slam) if stages else None
     klt_kernel.lk_iterate.launches = 0
     klt_kernel.lk_track.launches = 0
-    frame_ms, is_kf, prof = [], [], None
+    klt_kernel.lk_track.launches_by_levels = {}
+    frame_ms, is_kf, prof, outs = [], [], None, []
     t_run = time.perf_counter()
     for i, f in enumerate(frames):
         if profile_frames and i == profile_frames[0]:
@@ -494,6 +591,7 @@ def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profil
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         is_kf.append(bool(out["is_kf"]))
+        outs.append(out)
         if profile_frames and i == profile_frames[1]:
             prof_wall = time.perf_counter() - t_prof
             prof.__exit__(None, None, None)
@@ -501,7 +599,8 @@ def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profil
     rec = {"engine": engine, "slam": slam, "frames": len(frames), "run_s": run_s,
            "frame_ms": np.asarray(frame_ms), "is_kf": np.asarray(is_kf),
            "lk_iterate": klt_kernel.lk_iterate.launches, "lk_track": klt_kernel.lk_track.launches,
-           "stages": stage_log}
+           "lk_track_by_levels": dict(klt_kernel.lk_track.launches_by_levels),
+           "stages": stage_log, "outs": outs, "captured": captured.get("state")}
     est = np.asarray([t for _, _, t in slam.traj])
     _require(len(est) == len(frames), "one pose per frame expected")
     _require(np.isfinite(est).all() and all(np.isfinite(R).all() for _, R, _ in slam.traj),
@@ -548,14 +647,273 @@ def phase_main_path(world, frames, device):
     _require(rec["ate"] < ATE_TOL_M, f"ATE {rec['ate']:.4f} m")
     _require(rec["lk_track"] > 0, "the main path never launched the fused track kernel")
     _require(rec["lk_iterate"] == 0, "the fused engine launched the per-level kernel")
-    # one frame track per frame after the first, one stereo track per keyframe
     _require(slam.n_resets == 0, "the main path reset")
-    tracks = (len(frames) - 1) + int(rec["is_kf"].sum())
-    _require(rec["lk_track"] == tracks,
-             f"{rec['lk_track']} lk_track launches for {tracks} klt.track calls")
+    _require(rec["lk_track"] == _accounted_tracks(rec),
+             f"{rec['lk_track']} lk_track launches for {_accounted_tracks(rec)} klt.track calls")
     _require(slam.window.R.is_cuda and slam.window.lmk.is_cuda and slam.obs.uv.is_cuda,
              "window state left the card")
     return rec
+
+
+def _accounted_tracks(rec):
+    """klt.track calls of a run without a reset: one frame track per frame
+    after the first, one stereo track per keyframe."""
+    return (rec["frames"] - 1) + int(rec["is_kf"].sum())
+
+
+def phase_long_run(device, n_frames=LONG_FRAMES, seed=LONG_SEED):
+    """The long-run path at full width: 752x480 stereo VIO, K=11, L=512,
+    global map + pose graph + mesh on, over an excursion that returns to its
+    start.  The new stages are timed as the run goes."""
+    world, frames = make_long_world(device, n_frames, seed)
+    cfg_kw = dict(global_map=True, pose_graph=True, mesh3d=True, archive_capacity=4096,
+                  archive_max_nodes=24, max_length_tsh=2.0, zncc_tsh=0.5)
+    with _TimedFunctions() as timed:
+        rec = run_slam(world, frames, device, "fused", cfg_kw=cfg_kw,
+                       capture_roll=LONG_CAPTURE_ROLL)
+    slam, outs = rec["slam"], rec["outs"]
+    res = sum(o.get("gm_resurrected", 0) for o in outs)
+    lcs = [o["loop_closure"] for o in outs if "loop_closure" in o]
+    long_lcs = [lc for lc in lcs if lc[1] - lc[0] > 1.0]
+    tris = [o["mesh_triangles"] for o in outs if "mesh_triangles" in o]
+    print(f"long run: {_describe(rec)}")
+    print(f"long run: archived nodes {len(slam.archived_kf)} (cap {slam.cfg.archive_max_nodes}), "
+          f"edges {len(slam.pose_graph_edges)}, archive landmarks "
+          f"{int(slam.global_map_state.mask.sum())}, resurrections {res}, loop closures "
+          f"{len(lcs)} ({len(long_lcs)} spanning more than 1 s), last closure try "
+          f"(candidates, inliers, ok) {slam._lc_diag}")
+    _require(slam.n_resets == 0, "the long run reset")
+    _require(slam.vi_initialized, "VIInit never fired on the long run")
+    n_rolls = sum(1 for o in outs if o.get("is_kf")) - slam.caps.K
+    _require(n_rolls >= 10, f"the window rolled {n_rolls} times")
+    _require(len(slam.archived_kf) >= 10, f"{len(slam.archived_kf)} archived keyframes")
+    _require(res > 0, "no landmark was resurrected from the global map")
+    _require(len(long_lcs) >= 1, f"no loop closure accepted: {lcs}")
+    _require(rec["ate"] < ATE_TOL_M, f"long run ATE {rec['ate']:.4f} m")
+    _require(rec["lk_track"] == _accounted_tracks(rec) and rec["lk_iterate"] == 0,
+             f"{rec['lk_track']} lk_track launches for {_accounted_tracks(rec)} klt.track calls")
+
+    # pose graph over archive + window: finite, and the newest node no worse
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nodes = slam.optimize_archive()
+    torch.cuda.synchronize()
+    opt_ms = (time.perf_counter() - t0) * 1e3
+    # drift is read without a gauge: the position of each live-window node
+    # relative to the oldest node (held fixed by the optimization), in that
+    # node's body frame, against the same quantity of the ground truth
+    gt_i = {float(f.ts): i for i, f in enumerate(frames)}
+    node_t = {}
+    for ts, _, t in nodes:
+        node_t.setdefault(float(ts), np.asarray(t, np.float64))
+    ts0, R_0, t_0 = nodes[0]
+    i0 = gt_i[float(ts0)]
+
+    def err(t, ts):
+        i = gt_i[float(ts)]
+        d_gt = world.gt_R[i0].T @ (world.gt_t[i] - world.gt_t[i0])
+        return float(np.linalg.norm(np.asarray(R_0, np.float64).T @ (t - t_0) - d_gt))
+
+    win = slam._window_poses()
+    raw = [err(np.asarray(t, np.float64), ts) for ts, _, t in win]
+    opt = [err(node_t[float(ts)], ts) for ts, _, _ in win]
+    _require(all(np.isfinite(t).all() and np.isfinite(R).all() for _, R, t in nodes),
+             "optimize_archive gave a non-finite node")
+    print(f"long run: optimize_archive over {len(nodes)} nodes in {opt_ms:.1f} ms; newest node "
+          f"error {raw[-1] * 1e3:.2f} mm raw, {opt[-1] * 1e3:.2f} mm optimized; window max "
+          f"{max(raw) * 1e3:.2f} -> {max(opt) * 1e3:.2f} mm")
+    _require(opt[-1] <= raw[-1] + 1e-4, "optimize_archive made the newest node worse")
+
+    cloud = slam.mesher.dense_points()
+    print(f"long run: mesh triangles per keyframe min/median/max {min(tris)}/"
+          f"{int(np.median(tris))}/{max(tris)}, Delaunay triangles cut at the cap of "
+          f"{slam.mesher.tri_cap}: {slam.mesher.n_cut} over {len(tris)} keyframes, dense cloud "
+          f"{len(cloud)} points")
+    _require(max(tris) > 0 and len(cloud) > 0, "the mesher produced nothing")
+    gm = slam.global_map_state
+    _require(all(x.is_cuda for x in (slam.window.lmk, gm.pos, gm.desc, slam.lmk_desc,
+                                     slam.mesher.tri, slam.mesher.tri_mask,
+                                     slam.mesher.cloud[-1][0])),
+             "map, archive or mesh tensors left the card")
+    for key, ms in timed.log.items():
+        _require(len(ms) > 0, f"stage {key} never ran on the long run")
+        print(f"long run: stage {key}: calls {len(ms)} mean {np.mean(ms):.3f} ms median "
+              f"{np.median(ms):.3f} ms max {np.max(ms):.3f} ms")
+    print(f"long run: stage optimize_archive: 1 call {opt_ms:.1f} ms ({len(nodes)} nodes, "
+          f"{len(slam.pose_graph_edges)} edges)")
+    _require(rec["captured"] is not None, f"VIO roll {LONG_CAPTURE_ROLL} never came")
+    rec["timed"] = timed
+    return rec
+
+
+def phase_stage_kernels(long_rec):
+    """Kernel counts and device time of the long run's new stages: the last
+    call of each replayed under torch.profiler (the mesher's update as a
+    whole holds its two stages and the host's Delaunay, which launches
+    nothing), and optimize_archive on the run's final state."""
+    calls = dict(long_rec["timed"].calls)
+    calls.pop("mesh.delaunay_triangles")
+    calls["optimize_archive"] = (long_rec["slam"].optimize_archive, (), {})
+    for key, (fn, a, k) in calls.items():
+        table, _ = _profile(lambda: fn(*a, **k), n=5)
+        print(f"measure: stage {key}: {sum(c for c, _ in table.values()) / 5:.0f} kernels, "
+              f"{sum(us for _, us in table.values()) / 5 / 1e3:.3f} ms of device time per call")
+
+
+def phase_long_sweep(device):
+    """The long run and its marginalization check at other lengths and
+    seeds, to show how much of the result the one fixed setting carries.
+    Requirements that fail here are printed and fail nothing."""
+    global _require
+    failed = []
+    strict, _require = _require, lambda cond, msg: cond or failed.append(msg)
+    try:
+        for n_frames, seed in LONG_SWEEP:
+            print(f"sweep: long run frames={n_frames} seed={seed}")
+            phase_marg_backends(phase_long_run(device, n_frames, seed), device)
+            print(f"sweep: frames={n_frames} seed={seed} requirements failed: {failed}")
+            failed.clear()
+    finally:
+        _require = strict
+
+
+def phase_frontends(world, frames, device, fused):
+    """The matcher tracker (BRIEF match + a levels=1 lk_track polish per
+    frame), then the epipolar pose estimator, on the first frames of the
+    main path's world."""
+    recs = {}
+    for name, kw in (("matcher", dict(tracker="matcher")),
+                     ("epipolar", dict(pose_estimator="epipolar"))):
+        with _TimedFunctions((("detect", "brief_describe"),)) as timed:
+            rec = run_slam(world, frames[:N_FRAMES_FRONTEND], device, "fused", cfg_kw=kw)
+        by = rec["lk_track_by_levels"]
+        print(f"{name} run: {_describe(rec)} by levels {by}")
+        _require(rec["slam"].n_resets == 0, f"the {name} run reset")
+        _require(rec["ate"] < ATE_TOL_M, f"{name} run ATE {rec['ate']:.4f} m")
+        _require(rec["lk_track"] == _accounted_tracks(rec) and rec["lk_iterate"] == 0,
+                 f"{name} run: {rec['lk_track']} launches for {_accounted_tracks(rec)} tracks")
+        n_kf = int(rec["is_kf"].sum())
+        if name == "matcher":
+            _require(by.get(1, 0) == rec["frames"] - 1 and by.get(LEVELS, 0) == n_kf,
+                     f"matcher run: launches by levels {by}")
+            ms = timed.log["detect.brief_describe"]
+            print(f"matcher run: stage detect.brief_describe: calls {len(ms)} median "
+                  f"{np.median(ms):.3f} ms")
+        else:
+            _require(by.get(1, 0) == 0, "the epipolar run launched a levels=1 track")
+            oks = [o["pnp_ok"] for o in rec["outs"] if "pnp_ok" in o]
+            _require(np.mean(oks) > 0.8, f"essential RANSAC accepted {np.mean(oks):.2f}")
+        gap = float(np.linalg.norm(rec["est"] - fused["est"][:N_FRAMES_FRONTEND], axis=1).max())
+        print(f"{name} run: max position gap to the KLT + PnP run {gap * 1e3:.3f} mm")
+        recs[name] = rec
+    return recs
+
+
+def _marg_products(state, rig, opts, device):
+    """Every marginalization product of one window on `device`, float64 numpy."""
+    from sadvio_tpu_torch.backend import marginalization as marg
+
+    window, obs, imu, priors = [x.to(device) for x in state]
+    rig = rig.to(device)
+    info = lambda W: (W.double().transpose(-1, -2) @ W.double()).cpu().numpy()
+    out, ms = {}, {}
+
+    def timed(key, fn):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms[key] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    for tag, f64 in (("f32", False), ("f64", True)):
+        new, inf = timed(f"marginalize {tag}", lambda: marg.marginalize(
+            window, obs, rig, imu, priors, opts, vio=True, sparsify=True, f64=f64))
+        out[f"{tag} sp_info"] = info(new.sp_sqrt_info[1])
+        out[f"{tag} plp_info"] = info(new.plp_sqrt_info)
+        out[f"{tag} Ak"] = inf["Ak"].double().cpu().numpy()
+        dense, _ = timed(f"dense replay {tag}", lambda: marg.marginalize(
+            window, obs, rig, imu, priors, opts, vio=True, sparsify=False, f64=f64))
+        out[f"{tag} dn_info"] = info(dense.dn_J)
+        out[f"{tag} slots"] = new.prior_slots.cpu().numpy() * new.prior_slot_mask.cpu().numpy()
+    dx, inf_e, n_sh = timed("marginalize_relative", lambda: marg.marginalize_relative(
+        window, obs, rig, imu, opts, vio=True))
+    out["nfr_dx"] = dx.double().cpu().numpy()
+    out["nfr_info"] = inf_e.double().cpu().numpy()
+    _require(int(n_sh) > 0, "the captured window shares no landmark between slots 0 and 1")
+    return out, ms
+
+
+def _one_ulp_off(state, seed, eps=6e-8):
+    """The window with its landmarks, positions and pixel observations moved
+    by half a float32 unit in the last place, at random."""
+    gen = torch.Generator().manual_seed(seed)
+    window, obs, imu, priors = state
+    off = lambda x: x * (1 + eps * torch.randn(x.shape, generator=gen))
+    return (window.replace(lmk=off(window.lmk), t=off(window.t)), obs.replace(uv=off(obs.uv)),
+            imu, priors)
+
+
+MARG_FLOOR_SEEDS = (1, 2, 3)
+MARG_FLOOR_FACTOR = 10.0  # a gap this many times the rounding floor is the backend's
+MARG_PHANTOM = 1e-2  # of the blanket scale: information made of noise, whatever the floor
+
+
+def phase_marg_backends(long_rec, device):
+    """cuSOLVER against LAPACK: the marginalization products of one window
+    of the long run, on the card and on the CPU from the same state.
+
+    Limits are scale-aware: a prior block's gap counts against the
+    blanket's information scale |Ak| (1e-4); the relative edge's information
+    against its own norm (0.15: two pseudo-inverses); every other product
+    against its own norm (1e-3).  Some products are thresholded
+    pseudo-inverses of near-singular matrices and move by more than their
+    limit when the input moves by one float32 rounding, on any backend.  So
+    each product's rounding floor is measured too: its largest gap on the CPU
+    alone between the window and copies of it moved by half a unit in the last
+    place.  A product over its limit fails the run when its gap is more than
+    10 times that floor (the backend, not the rounding, made it) or when a
+    prior block's gap reaches 1e-2 of the blanket scale (a phantom prior:
+    blanket-scale information made of noise)."""
+    slam = long_rec["slam"]
+    state = [x.to("cpu") for x in long_rec["captured"]]
+    cpu_dev = torch.device("cpu")
+    for _ in range(2):  # the first pass on the card pays cuSOLVER's set-up
+        gpu, ms_gpu = _marg_products(state, slam.rig, slam._ba_opts, device)
+    cpu, ms_cpu = _marg_products(state, slam.rig, slam._ba_opts, cpu_dev)
+    moved = [_marg_products(_one_ulp_off(state, seed), slam.rig, slam._ba_opts, cpu_dev)[0]
+             for seed in MARG_FLOOR_SEEDS]
+    for key in ms_gpu:
+        print(f"marg backends: {key}: card {ms_gpu[key]:.1f} ms, CPU {ms_cpu[key]:.1f} ms")
+    bad = []
+    for key in gpu:
+        a, b = gpu[key], cpu[key]
+        if key.endswith("slots"):
+            _require(np.array_equal(a, b), f"{key} differ between the card and the CPU")
+            continue
+        own = max(np.linalg.norm(b), 1e-20)
+        prior_block = key.endswith(("sp_info", "plp_info"))
+        if prior_block:
+            scale, limit, what = max(np.linalg.norm(cpu[key[:3] + " Ak"]), 1e-20), 1e-4, "blanket"
+        elif key == "nfr_info":
+            scale, limit, what = own, 0.15, "own norm"
+        else:
+            scale, limit, what = own, 1e-3, "own norm"
+        rel = float(np.linalg.norm(a - b) / scale)
+        floor = max(float(np.linalg.norm(m[key] - b) / scale) for m in moved)
+        if rel <= limit:
+            verdict = ""
+        elif rel <= MARG_FLOOR_FACTOR * floor and not (prior_block and rel >= MARG_PHANTOM):
+            verdict = "  over the limit, at the rounding floor"
+        else:
+            verdict = "  <-- RED FLAG"
+            bad.append(key)
+        print(f"marg backends: {key:12s} |card| {np.linalg.norm(a):.5g} |cpu| {own:.5g} gap "
+              f"{rel:.3e} vs {what} (limit {limit:g}; rounding floor on the CPU alone "
+              f"{floor:.3e}){verdict}")
+    _require(not bad, f"backend-dependent marginalization products: {bad}")
 
 
 def phase_levels_path(world, frames, device, fused):
@@ -651,15 +1009,21 @@ def main():
     tr_rows = phase_track_kernel(frames, device)
     fused = phase_main_path(world, frames, device)
     levels = phase_levels_path(world, frames, device, fused)
+    fronts = phase_frontends(world, frames, device, fused)
+    long_rec = phase_long_run(device)
+    phase_marg_backends(long_rec, device)
     if measure:
+        phase_stage_kernels(long_rec)
         phase_clocks(frames, device)
         phase_measure(world, frames, device)
+    if "--sweep" in sys.argv[1:]:
+        phase_long_sweep(device)
     if "--parent" in sys.argv[1:]:
         phase_parent(sys.argv[sys.argv.index("--parent") + 1], frames[0], device)
     print("library_ms: null for both kernels -- no single PyTorch call computes an LK "
           "iteration loop or a pyramidal forward-backward track")
     print(card)
-    lvl0, tr = it_rows[0], tr_rows[0]
+    lvl0, tr, polish = it_rows[0], tr_rows[0], tr_rows[2]
     print(json.dumps({"kernels": [{
         "name": "lk_iterate", "route": "cuda",
         "source": "sadvio_tpu_torch/ops/csrc/lk_iterate.cu",
@@ -680,6 +1044,10 @@ def main():
         "ms": tr["ms"], "profiler_ms": tr["profiler_ms"], "host_us": tr["host_us"],
         "plain_ms": tr["plain_ms"], "bound_ms": tr["bound_ms"], "bound_by": tr["bound_by"],
         "library_ms": None,
+        "launches_long_run": long_rec["lk_track"],
+        "launches_matcher_run": fronts["matcher"]["lk_track_by_levels"],
+        "levels1": {k: polish[k] for k in ("ms", "profiler_ms", "plain_ms", "bound_ms",
+                                            "bound_by", "max_abs_err_uv", "max_abs_err_err")},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -53,3 +53,10 @@ def lmk_lmk_residual(p_a, p_b, d_ab, sqrt_info):
 def pose_lmk_residual(R, t, p_w, p_f0, sqrt_info):
     """Landmark prior in frame coordinates: r = W (R^T (p_w - t) - p_f0)."""
     return geo.mv(sqrt_info, geo.mv(R.transpose(-1, -2), p_w - t) - p_f0)
+
+
+def relative_pose_residual(R_i, t_i, R_j, t_j, dx_meas, sqrt_info):
+    """Relative 6-dof pose factor: r = W (local(T_i^-1 T_j) - dx_meas), with
+    dx_meas the expected retraction from frame i to frame j."""
+    Rij, tij = geo.pose_compose(*geo.pose_inverse(R_i, t_i), R_j, t_j)
+    return geo.mv(sqrt_info, torch.cat([geo.so3_log(Rij), tij], -1) - dx_meas)

@@ -1,13 +1,23 @@
-"""Marginalization of the oldest keyframe into a sparsified prior.
+"""Marginalization of the oldest keyframe into a sparsified or dense prior.
 
-Port of the main-path subset of ``sadvio_tpu/backend/marginalization.py``:
-the float32 square-root route (QR on the stacked whitened blanket Jacobian)
-with the VIO sparsified prior (pose-relative landmark priors + a 15-dof
-state prior on the kept frame) and the VO Chow-Liu chain, which the
-pipeline uses for rolls before VIInit.  The window is ordered: slot 0 is
-the frame to marginalize, slot 1 the kept frame; the dense marg delta is
-[x0(15) | dropped(3P) | x1(15) | kept(3P)].  The host-f64 island and the
-dense replay prior are not ported yet and raise.
+Port of ``sadvio_tpu/backend/marginalization.py``.  The window is ordered:
+slot 0 is the frame to marginalize, slot 1 the kept frame; the dense marg
+delta is [x0(15) | dropped(3P) | x1(15) | kept(3P)].
+
+* float32 route (default): square-root marginalization, QR on the stacked
+  whitened blanket Jacobian, which works at the square root of the
+  blanket's ~1e8 information spread.
+* ``f64=True``: the reference's H-space Schur / eigendecomposition chain
+  with a 1e-12 rank threshold.  The JAX package leaves the device for a
+  host float64 island; here float64 is a dtype, so the chain runs in
+  ``torch.float64`` on the caller's device and the priors come back in
+  float32.
+* ``sparsify=True`` emits the sparsified prior (VIO: pose-relative landmark
+  priors + a 15-dof state prior on the kept frame; VO: a Chow-Liu chain);
+  ``sparsify=False`` replays the marginal as one dense (15+3P)-dim linear
+  factor.
+* ``marginalize_relative`` condenses the links between slots 0 and 1 into
+  one relative-pose edge for the pose graph.
 """
 
 from __future__ import annotations
@@ -54,6 +64,35 @@ def pinv_sqrt(cov, eps_rel=1e-6):
     s = torch.where(keep, 1.0 / torch.sqrt(torch.where(keep, lam, torch.ones_like(lam))),
                     torch.zeros_like(lam))
     return (U * s[..., None, :]) @ U.transpose(-1, -2)
+
+
+_EPS64 = 1e-12  # relative rank threshold of the float64 chain
+
+
+def rr_pinv64(A):
+    """rank_revealing_pinv computed in float64 at a 1e-12 threshold; the
+    results keep float64 (the caller casts what it stores)."""
+    return rank_revealing_pinv(A.double(), _EPS64)
+
+
+def pinv_sqrt64(cov):
+    """pinv_sqrt computed in float64 at a 1e-12 threshold, returned in float32."""
+    return pinv_sqrt(cov.double(), _EPS64).float()
+
+
+def kld_gaussian_info(A_p, A_q, eps_rel=1e-6):
+    """KLD between zero-mean Gaussians given their information matrices."""
+    _, U, lam, keep = rank_revealing_pinv(A_p, eps_rel)
+    n = keep.sum()
+    kf = keep.to(A_p.dtype)
+    Ut = U * kf[..., None, :]
+    delta = Ut.transpose(-1, -2) @ A_q @ Ut
+    delta = delta * (1.0 / torch.where(lam > 0, lam, torch.ones_like(lam)))[..., None, :]
+    eye = torch.eye(delta.shape[-1], dtype=delta.dtype, device=delta.device)
+    delta = delta + eye * (1.0 - kf[..., None, :])
+    logdet = torch.linalg.slogdet(delta)[1]
+    tr = torch.diagonal(delta, dim1=-2, dim2=-1).sum(-1) - (delta.shape[-1] - n)
+    return 0.5 * (tr - logdet - n)
 
 
 def _eq_scales(A, eps_act=1e-10):
@@ -184,6 +223,52 @@ def _marg_dense_residuals(state, imu: ImuChain, priors: PriorSet, opts: BAOption
     return torch.cat(parts)
 
 
+def _reproj_h_slot0(state, obs, rig, opts, blanket, dim, P, dtype=None):
+    """Reprojection contributions at slot 0 to the dense marg system, (H, g)
+    with g = J^T W r.  Kept and dropped landmarks enter with their blocks;
+    lonely landmarks are eliminated with batched 3x3 Schur blocks onto the
+    x0 pose (keep in sync with _reproj_sqrt_rows).  ``dtype``: the products
+    and the elimination are formed in this type from the residuals' own
+    (float64 keeps g exactly in the range of H, which the dense replay of
+    the float64 chain relies on)."""
+    r, Jp, Jl, m, w = _reproj_terms(state, obs, rig, opts)
+    dtype, dev = dtype or r.dtype, r.device
+    r0, Jp0, Jl0, w0 = (x[0].to(dtype) for x in (r, Jp, Jl, w))  # (C,L,...)
+    wJl = w0[..., None, None] * Jl0
+    wJp = w0[..., None, None] * Jp0
+    Hll = torch.einsum("clai,claj->lij", wJl, Jl0)
+    Hpl = torch.einsum("clai,claj->lij", wJp, Jl0)
+    Hpp = torch.einsum("clai,claj->ij", wJp, Jp0)
+    gp = torch.einsum("clai,cla->i", wJp, r0)
+    gl = torch.einsum("clai,cla->li", wJl, r0)
+
+    # the elimination itself always runs in float64 (see _reproj_sqrt_rows)
+    f64 = torch.float64
+    em = blanket.lonely.to(f64)
+    eye3 = torch.eye(3, dtype=f64, device=dev)
+    Hll_inv = geo.inv3x3(Hll.to(f64) * em[:, None, None] + eye3 * opts.jitter) * em[:, None, None]
+    Hpl_l = Hpl.to(f64) * em[:, None, None]
+    corr = -torch.einsum("lij,ljk,lmk->im", Hpl_l, Hll_inv, Hpl_l).to(dtype)
+    g_corr = -torch.einsum("lij,ljk,lk->i", Hpl_l, Hll_inv, gl.to(f64) * em[:, None]).to(dtype)
+
+    H = torch.zeros((dim, dim), dtype=dtype, device=dev)
+    g = torch.zeros(dim, dtype=dtype, device=dev)
+    H[0:6, 0:6] = Hpp + corr
+    g[0:6] = gp + g_corr
+    ar = torch.arange(P, device=dev)
+    for idx, valid, off in ((blanket.drop_idx, blanket.drop_mask, D),
+                            (blanket.keep_idx, blanket.keep_mask, 2 * D + 3 * P)):
+        safe = torch.where(valid, idx, 0)
+        vf = valid.to(dtype)
+        H[off: off + 3 * P, off: off + 3 * P].view(P, 3, P, 3)[ar, :, ar, :] += (
+            Hll[safe] * vf[:, None, None])
+        Hc = (Hpl[safe] * vf[:, None, None]).permute(1, 0, 2).reshape(6, 3 * P)
+        H[0:6, off: off + 3 * P] += Hc
+        H[off: off + 3 * P, 0:6] += Hc.T
+        g[off: off + 3 * P] += (gl[safe] * vf[:, None]).reshape(-1)
+    return H, g
+
+
 def _reproj_sqrt_rows(state, obs, rig, opts, blanket, dim, P):
     """Whitened reprojection Jacobian rows at slot 0: keep/drop landmarks
     give their observation rows directly; lonely landmarks are eliminated
@@ -207,17 +292,25 @@ def _reproj_sqrt_rows(state, obs, rig, opts, blanket, dim, P):
     rows[..., 0:6] += Jp0 * sw[..., None, None]
     rows = rows.reshape(-1, dim)
 
-    wJl = w0[..., None, None] * Jl0
-    Hll = torch.einsum("clai,claj->lij", wJl, Jl0)
-    Hpl = torch.einsum("clai,claj->lij", w0[..., None, None] * Jp0, Jl0)
-    em = blanket.lonely.to(dtype)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    Hll_inv = geo.inv3x3(Hll * em[:, None, None] + eye3 * opts.jitter) * em[:, None, None]
-    Hpl_l = Hpl * em[:, None, None]
-    Hpp_l = torch.einsum("clai,claj->ij", (w0 * em[None, :])[..., None, None] * Jp0, Jp0)
-    M6 = _sym(Hpp_l - torch.einsum("lij,ljk,lmk->im", Hpl_l, Hll_inv, Hpl_l))
+    # The elimination of the lonely landmarks runs in float64 whatever the
+    # window's dtype.  A landmark seen by one camera only has a rank-2 Hll;
+    # in float32 its jittered 3x3 inverse loses the cancellation that keeps
+    # the landmark's unobserved depth out of the pose block, and the six rows
+    # then carry information on the x0 pose that is orders of magnitude above
+    # the true correction and differs between backends; the marginal hands it
+    # on as an over-confident prior.
+    f64 = torch.float64
+    Jp64, Jl64, w64 = Jp0.to(f64), Jl0.to(f64), w0.to(f64)
+    em = blanket.lonely.to(f64)
+    wl = (w64 * em[None, :])[..., None, None]
+    Hll = torch.einsum("clai,claj->lij", wl * Jl64, Jl64)
+    Hpl = torch.einsum("clai,claj->lij", wl * Jp64, Jl64)
+    Hpp_l = torch.einsum("clai,claj->ij", wl * Jp64, Jp64)
+    eye3 = torch.eye(3, dtype=f64, device=dev)
+    Hll_inv = geo.inv3x3(Hll + eye3 * opts.jitter) * em[:, None, None]
+    M6 = _sym(Hpp_l - torch.einsum("lij,ljk,lmk->im", Hpl, Hll_inv, Hpl))
     rows6 = torch.zeros((6, dim), dtype=dtype, device=dev)
-    rows6[:, 0:6] = sqrt_psd(M6)
+    rows6[:, 0:6] = sqrt_psd(M6).to(dtype)
     return torch.cat([rows, rows6])
 
 
@@ -228,14 +321,16 @@ def _finite(x):
 def marginalize(state: WindowState, obs: Observations, rig: Rig, imu: ImuChain,
                 priors: PriorSet, opts: BAOptions, vio: bool = True,
                 sparsify: bool = True, f64: bool = False):
-    """Marginalize KF slot 0 into a sparsified prior.
+    """Marginalize KF slot 0; emit a sparsified or a dense prior.
+
+    sparsify=False: the marginal is replayed as one dense (15+3P)-dim linear
+    factor (float32 route: dn_J = R22 with a zero replayed gradient, whose
+    float32 value at convergence is cancellation noise; float64 route:
+    J = Lam^1/2 U^T, r = Lam^-1/2 U^T g_k on the kept eigen-subspace).
+    f64=True: the H-space Schur chain in float64 on the caller's device.
 
     Returns (new_priors, info); new_priors is in pre-shift slot coordinates
     (kept frame = slot 1): apply shift_priors() after the window shift."""
-    if f64:
-        raise NotImplementedError("marg_f64 (host float64 marginalization) is not ported yet")
-    if not sparsify:
-        raise NotImplementedError("the dense replay prior (sparsification: 0) is not ported yet")
     P = priors.P
     dt_, dev = state.lmk.dtype, state.lmk.device
     blanket = partition_blanket(state, obs, priors, P)
@@ -246,19 +341,38 @@ def marginalize(state: WindowState, obs: Observations, rig: Rig, imu: ImuChain,
     def rfun(dxm):
         return _marg_dense_residuals(state, imu, priors, opts, blanket, dxm, W0)
 
-    J = torch.func.jacfwd(rfun)(torch.zeros(dim, dtype=dt_, device=dev))
-    # square-root marginalization: QR of the stacked whitened Jacobian works
-    # at the square root of the blanket's ~1e8 information spread
-    rows_r = _reproj_sqrt_rows(state, obs, rig, opts, blanket, dim, P)
-    R_ = torch.linalg.qr(torch.cat([J, rows_r]), mode="r")[1]
-    R22 = R_[m_dim:, m_dim:]
-    degenerate = (~torch.isfinite(R22)).any()
-    R22 = _finite(R22)
-    Ak = _sym(R22.T @ R22)
-    Sigma_k = rank_revealing_pinv_eq(Ak)
-    # marginal square-root factor of x1 alone (triangular, inversion-free)
-    R2p = torch.linalg.qr(torch.cat([R22[:, D:], R22[:, :D]], 1), mode="r")[1]
-    sp_tri = _finite(R2p[3 * P:, 3 * P:])
+    z0 = torch.zeros(dim, dtype=dt_, device=dev)
+    J = torch.func.jacfwd(rfun)(z0)
+    if f64:
+        # H-space chain of the reference, in float64 from the float32
+        # Jacobians on: products, Schur complement and both pseudo-inverses
+        J64 = J.double()
+        H_r, g_r = _reproj_h_slot0(state, obs, rig, opts, blanket, dim, P, torch.float64)
+        H = J64.T @ J64 + H_r
+        g = J64.T @ rfun(z0).double() + g_r  # cost gradient, ~0 at convergence
+        Hmm, Hmk, Hkk = H[:m_dim, :m_dim], H[:m_dim, m_dim:], H[m_dim:, m_dim:]
+        Hmm_inv = rr_pinv64(Hmm)[0]
+        Ak64 = _sym(Hkk - Hmk.T @ Hmm_inv @ Hmk)  # (15+3P) over [x1, kept]
+        gk = g[m_dim:] - Hmk.T @ (Hmm_inv @ g[:m_dim])
+        Sigma_k, U, lam, keep_eig = rr_pinv64(Ak64)
+        degenerate = torch.clamp(-lam.min(), min=0.0) > 1e-2 * torch.clamp(lam.max(), min=1e-20)
+        Ak = Ak64.to(dt_)
+        psq = pinv_sqrt64
+    else:
+        # square-root marginalization: QR of the stacked whitened Jacobian
+        # works at the square root of the blanket's ~1e8 information spread
+        rows_r = _reproj_sqrt_rows(state, obs, rig, opts, blanket, dim, P)
+        R_ = torch.linalg.qr(torch.cat([J, rows_r]), mode="r")[1]
+        R22 = R_[m_dim:, m_dim:]
+        degenerate = (~torch.isfinite(R22)).any()
+        R22 = _finite(R22)
+        Ak = _sym(R22.T @ R22)
+        Sigma_k = rank_revealing_pinv_eq(Ak)
+        # marginal square-root factor of x1 alone (triangular, inversion-free)
+        R2p = torch.linalg.qr(torch.cat([R22[:, D:], R22[:, :D]], 1), mode="r")[1]
+        sp_tri = _finite(R2p[3 * P:, 3 * P:])
+        psq = pinv_sqrt
+    sdt = Sigma_k.dtype
 
     new = PriorSet.create(state.K, P, dt_, dev).replace(
         prior_slots=blanket.keep_idx, prior_slot_mask=blanket.keep_mask)
@@ -266,7 +380,25 @@ def marginalize(state: WindowState, obs: Observations, rig: Rig, imu: ImuChain,
     R1, t1 = state.R[1], state.t[1]
     km = blanket.keep_mask
 
-    if vio:
+    if not sparsify:
+        if f64:
+            zero = torch.zeros_like(lam)
+            sq = torch.sqrt(torch.where(keep_eig, lam, zero))
+            isq = torch.where(keep_eig, 1.0 / torch.sqrt(torch.where(keep_eig, lam, zero + 1.0)),
+                              zero)
+            dn_J = (sq[:, None] * U.T).to(dt_)
+            dn_r = (isq * (U.T @ gk)).to(dt_)
+            has_info = (keep_eig & (lam > 0)).any()
+        else:
+            dn_J = R22
+            dn_r = torch.zeros(m_dim, dtype=dt_, device=dev)
+            dR_d = torch.abs(torch.diagonal(R22))
+            has_info = (dR_d > 1e-6 * torch.clamp(dR_d.max(), min=1e-20)).any()
+        new = new.replace(dn_J=dn_J, dn_r=dn_r, dn_R=R1, dn_t=t1, dn_v=state.v[1],
+                          dn_ba=state.ba[1], dn_bg=state.bg[1], dn_lmk=p_keep,
+                          dn_frame=torch.ones((), dtype=torch.int64, device=dev),
+                          dn_mask=has_info)
+    elif vio:
         # pose-relative landmark priors + 15-dof state prior on the kept frame
         p_f = geo.mv(R1.T, p_keep - t1)
         # Jacobian of R1^T (p - t1) - val wrt [dx1 (15) | kept landmarks (3P)]
@@ -275,18 +407,23 @@ def marginalize(state: WindowState, obs: Observations, rig: Rig, imu: ImuChain,
         Jr = torch.cat([geo.skew(p_f), -eye3.expand(P, 3, 3),
                         torch.zeros((P, 3, D - 6), dtype=dt_, device=dev),
                         J_lmk.reshape(P, 3, 3 * P)], -1)
+        Jr = Jr.to(sdt)
         cov = Jr @ Sigma_k @ Jr.transpose(-1, -2)
         new = new.replace(
             plp_val=p_f, plp_frame=torch.ones(P, dtype=torch.int64, device=dev),
-            plp_sqrt_info=pinv_sqrt(cov) * km[:, None, None], plp_mask=km)
+            plp_sqrt_info=psq(cov) * km[:, None, None], plp_mask=km)
+        # the float32 route takes the triangular marginal factor of x1 (an
+        # invert-invert round trip there turns chain noise into phantom
+        # information); the float64 chain keeps the reference's pinv recipe
+        sp_sqrt = psq(Sigma_k[:D, :D]) if f64 else sp_tri
         set1 = lambda x, val: torch.cat([x[:1], val[None], x[2:]])
         new = new.replace(
             sp_R=set1(new.sp_R, R1), sp_t=set1(new.sp_t, t1),
             sp_v=set1(new.sp_v, state.v[1]), sp_ba=set1(new.sp_ba, state.ba[1]),
-            sp_bg=set1(new.sp_bg, state.bg[1]), sp_sqrt_info=set1(new.sp_sqrt_info, sp_tri),
+            sp_bg=set1(new.sp_bg, state.bg[1]), sp_sqrt_info=set1(new.sp_sqrt_info, sp_sqrt),
             sp_mask=set1(new.sp_mask, km.any() | imu.mask[0]))
     else:
-        new = _chow_liu(new, Ak, Sigma_k, p_keep, km, P)
+        new = _chow_liu(new, Ak, Sigma_k, p_keep, km, P, psq)
 
     info = {"marg_lmk": blanket.marg_lmk, "lonely": blanket.lonely,
             "keep_idx": blanket.keep_idx, "keep_mask": km,
@@ -294,7 +431,7 @@ def marginalize(state: WindowState, obs: Observations, rig: Rig, imu: ImuChain,
     return new, info
 
 
-def _chow_liu(new: PriorSet, Ak, Sigma_k, p_keep, km, P: int) -> PriorSet:
+def _chow_liu(new: PriorSet, Ak, Sigma_k, p_keep, km, P: int, psq=pinv_sqrt) -> PriorSet:
     """VO sparsification: greedy max-MI chain of landmark-landmark factors
     plus one absolute prior on the min-entropy landmark."""
     dt_, dev = Ak.dtype, Ak.device
@@ -329,11 +466,12 @@ def _chow_liu(new: PriorSet, Ak, Sigma_k, p_keep, km, P: int) -> PriorSet:
     Sk4 = Sigma_k[D:, D:].reshape(P, 3, P, 3)
     ar = torch.arange(P, device=dev)
     blocks = Sk4[ar, :, ar, :]  # (P,3,3)
-    ent = torch.where(km, torch.linalg.det(blocks), torch.full((P,), float("inf"), device=dev))
+    ent = torch.where(km, torch.linalg.det(blocks),
+                      torch.full((P,), float("inf"), dtype=blocks.dtype, device=dev))
     root = torch.argmin(ent)
     onehot = (ar == root)
     lp_val = torch.where(onehot[:, None], p_keep, new.lp_val)
-    lp_info = torch.where(onehot[:, None, None], pinv_sqrt(blocks[root])[None], new.lp_sqrt_info)
+    lp_info = torch.where(onehot[:, None, None], psq(blocks[root])[None], new.lp_sqrt_info)
     lp_mask = onehot & km.any()
 
     i = torch.arange(P - 1, device=dev)
@@ -346,7 +484,79 @@ def _chow_liu(new: PriorSet, Ak, Sigma_k, p_keep, km, P: int) -> PriorSet:
     return new.replace(
         lp_val=lp_val, lp_sqrt_info=lp_info, lp_mask=lp_mask,
         ll_a=pad(ac, 0), ll_b=pad(bc, 0), ll_val=pad(p_keep[ac] - p_keep[bc], 0.0),
-        ll_sqrt_info=pad(pinv_sqrt(cov), 0.0), ll_mask=pad(ok, False))
+        ll_sqrt_info=pad(psq(cov), 0.0), ll_mask=pad(ok, False))
+
+
+def marginalize_relative(state: WindowState, obs: Observations, rig: Rig, imu: ImuChain,
+                         opts: BAOptions, vio: bool = True):
+    """Pose-graph edge between KF slots 0 and 1 by nonlinear factor recovery.
+
+    Every landmark observed by both frames is marginalized (batched 3x3
+    Schur) -- plus, for VIO, the preintegration and bias-walk factors
+    between them -- and the joint marginal over the two poses is condensed
+    into one relative-pose factor whose information matches it:
+    cov = J Sigma J^T, inf = cov^+.
+
+    Returns (dx_meas (6,), inf (6,6), n_shared): the measured relative
+    retraction, its recovered information and the shared-landmark count (0
+    means the edge carries nothing and should be skipped)."""
+    dtype, dev = state.lmk.dtype, state.lmk.device
+    D2 = 2 * D
+    shared = obs.mask[0].any(0) & obs.mask[1].any(0) & state.lmk_mask
+
+    r, Jp, Jl, m, w = _reproj_terms(state, obs, rig, opts)
+    w2 = w[:2] * shared[None, None, :]
+    wJp = w2[..., None, None] * Jp[:2]
+    Hpp_s = torch.einsum("kclai,kclaj->kij", wJp, Jp[:2])  # (2,6,6)
+    Hpl_s = torch.einsum("kclai,kclaj->klij", wJp, Jl[:2])  # (2,L,6,3)
+    Hll = torch.einsum("kclai,kclaj->lij", w2[..., None, None] * Jl[:2], Jl[:2])
+
+    H = torch.zeros((D2, D2), dtype=dtype, device=dev)
+    H[0:6, 0:6] = Hpp_s[0]
+    H[D: D + 6, D: D + 6] = Hpp_s[1]
+    if vio:
+        pre0 = imu.pre[0]
+        W = imu_mod.sqrt_info(pre0)
+        mm = imu.mask[0]
+
+        def rfun(dx):
+            d0, d1 = dx[:D], dx[D:]
+            R0, t0 = geo.pose_retract(state.R[0], state.t[0], d0[:6])
+            R1, t1 = geo.pose_retract(state.R[1], state.t[1], d1[:6])
+            v0, ba0, bg0 = state.v[0] + d0[6:9], state.ba[0] + d0[9:12], state.bg[0] + d0[12:15]
+            v1, ba1, bg1 = state.v[1] + d1[6:9], state.ba[1] + d1[9:12], state.bg[1] + d1[12:15]
+            r_imu = F.imu_factor_residual(pre0, W, R0, t0, v0, ba0, bg0, R1, t1, v1)
+            r_bias = F.bias_rw_residual(ba0, bg0, ba1, bg1, pre0.dt, opts.acc_walk,
+                                        opts.gyr_walk)
+            return torch.cat([torch.where(mm, r_imu, torch.zeros_like(r_imu)),
+                              torch.where(mm, r_bias, torch.zeros_like(r_bias))])
+
+        J_imu = torch.func.jacfwd(rfun)(torch.zeros(D2, dtype=dtype, device=dev))
+        H = H + J_imu.T @ J_imu
+
+    em = shared.to(dtype)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    Hll_inv = geo.inv3x3(Hll + eye3 * opts.jitter) * em[:, None, None]
+    B = torch.zeros((state.L, D2, 3), dtype=dtype, device=dev)
+    B[:, 0:6, :] = Hpl_s[0] * em[:, None, None]
+    B[:, D: D + 6, :] = Hpl_s[1] * em[:, None, None]
+    Ak = _sym(H - torch.einsum("lij,ljk,lmk->im", B, Hll_inv, B))
+
+    Sigma_k = rank_revealing_pinv_eq(Ak)
+    sel = torch.cat([torch.arange(6, device=dev), D + torch.arange(6, device=dev)])
+    Sigma_pp = Sigma_k[sel][:, sel]
+
+    dx_meas = geo.pose_local(state.R[0], state.t[0], state.R[1], state.t[1])
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+
+    def rel(dx12):
+        R0, t0 = geo.pose_retract(state.R[0], state.t[0], dx12[:6])
+        R1, t1 = geo.pose_retract(state.R[1], state.t[1], dx12[6:])
+        return F.relative_pose_residual(R0, t0, R1, t1, dx_meas, eye6)
+
+    Jr = torch.func.jacfwd(rel)(torch.zeros(12, dtype=dtype, device=dev))
+    inf = rank_revealing_pinv(Jr @ Sigma_pp @ Jr.T)[0]
+    return dx_meas, _sym(inf), shared.sum()
 
 
 def gauge_transform_priors(priors: PriorSet, R_align, scale, anchor=None) -> PriorSet:

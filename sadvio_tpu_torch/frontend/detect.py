@@ -1,9 +1,10 @@
 """Batched feature detection: corner scores + grid-bucketed top-k.
 
-Port of the main-path subset of ``sadvio_tpu/frontend/detect.py``: the whole
-image is scored in one pass, a 3x3 non-max suppression keeps local maxima,
-existing features suppress a radius around themselves, and a reshape to
-grid cells + per-cell top-k does the bucketing with fixed-size outputs.
+Port of ``sadvio_tpu/frontend/detect.py``: the whole image is scored in one
+pass, a 3x3 non-max suppression keeps local maxima, existing features
+suppress a radius around themselves, and a reshape to grid cells + per-cell
+top-k does the bucketing with fixed-size outputs.  ``brief_describe`` gives
+each feature a 256-bit BRIEF descriptor, held as a (N,256) bool tensor.
 """
 
 from __future__ import annotations
@@ -118,6 +119,58 @@ def bilinear_sample(img, uv):
     at = lambda r, c: flat[r * W + c]
     return (at(v0, u0) * (1 - du) * (1 - dv) + at(v0, u0 + 1) * du * (1 - dv)
             + at(v0 + 1, u0) * (1 - du) * dv + at(v0 + 1, u0 + 1) * du * dv)
+
+
+def window_sample(img, centers, pts, ws: int):
+    """Bilinear-sample pts (N,S,2) inside one (ws,ws) window per row.
+
+    Returns (values (N,S), inwin (N,S)).  The window's base is
+    floor(center) - ws // 2, clipped so the window lies in the image; a
+    point outside its window is sampled at the clamped cell (with its own
+    fractional part) and flagged False.  The values and flags are those of
+    the JAX package's window sampler; the taps are plain gathers."""
+    H, W = img.shape
+    ws = min(ws, H, W)
+    c = torch.nan_to_num(centers, nan=0.0, posinf=0.0, neginf=0.0)
+    hi = torch.tensor([W - ws, H - ws], dtype=c.dtype, device=c.device)
+    base = torch.minimum(torch.clamp(torch.floor(c) - (ws // 2), min=0.0), hi)
+    loc = pts - base[:, None, :]
+    fl = torch.floor(loc)
+    fx, fy = loc[..., 0] - fl[..., 0], loc[..., 1] - fl[..., 1]
+    # non-finite points: flagged out, sampled at cell 0
+    fl = torch.nan_to_num(fl, nan=-1.0, posinf=-1.0, neginf=-1.0)
+    ix, iy = fl[..., 0].long(), fl[..., 1].long()
+    inwin = (ix >= 0) & (ix <= ws - 2) & (iy >= 0) & (iy <= ws - 2)
+    bx, by = base[:, None, 0].long(), base[:, None, 1].long()
+    ix = torch.clamp(ix, 0, ws - 2) + bx
+    iy = torch.clamp(iy, 0, ws - 2) + by
+    flat = img.reshape(-1)
+    at = lambda r, col: flat[r * W + col]
+    vals = ((at(iy, ix) * (1 - fx) + at(iy, ix + 1) * fx) * (1 - fy)
+            + (at(iy + 1, ix) * (1 - fx) + at(iy + 1, ix + 1) * fx) * fy)
+    return vals, inwin
+
+
+def _brief_offsets(n_bits: int = 256, patch: int = 24, seed: int = 7):
+    """Static random sampling-pair table (2, n_bits, 2): [pair, bit, (dx,dy)].
+    Drawn as the JAX package draws it, so both hold the same pairs."""
+    r = np.random.default_rng(seed)
+    pts = r.normal(0.0, patch / 5.0, size=(2, n_bits, 2)).clip(-patch / 2, patch / 2)
+    return pts.astype(np.float32)
+
+
+_BRIEF = _brief_offsets()
+DESC_BITS = _BRIEF.shape[1]
+
+
+def brief_describe(img_smooth, uv):
+    """256-bit BRIEF descriptors (N,256) bool: bit b is set where the first
+    point of pair b is brighter than the second on the smoothed image.  No
+    rotation invariance (matching uses predicted search boxes)."""
+    pairs = torch.as_tensor(_BRIEF, device=uv.device)
+    pts = torch.cat([uv[:, None, :] + pairs[0][None], uv[:, None, :] + pairs[1][None]], 1)
+    vals, _ = window_sample(img_smooth, uv, pts, ws=32)
+    return vals[:, :DESC_BITS] > vals[:, DESC_BITS:]
 
 
 def smooth3(img):

@@ -411,7 +411,8 @@ def lk_track(pyr0, pyr1, uv0, uv_init, valid0, warp=None, *, levels: int = 3, ra
     them; uv0, uv_init (N,2); valid0 (N,) bool; warp (N,2,2) or None.
     Returns (uv1 (N,2), valid (N,) bool, err (N,)).  ``margin`` sizes the
     kernel's shared-memory window and does not change the result.  Counts
-    kernel launches in ``lk_track.launches``."""
+    kernel launches in ``lk_track.launches``, and per ``levels`` in
+    ``lk_track.launches_by_levels``."""
     _check_track(pyr0, pyr1, uv0, uv_init, valid0, warp, levels, radius, bwd_levels,
                  iters, iters_coarse)
     kw = dict(levels=levels, radius=radius, iters=iters, iters_coarse=iters_coarse,
@@ -424,10 +425,12 @@ def lk_track(pyr0, pyr1, uv0, uv_init, valid0, warp=None, *, levels: int = 3, ra
     out = _launch_track(_library(), pyr0, pyr1, uv0, uv_init, valid0, warp, margin, **kw)
     if uv0.shape[0] > 0:  # nothing was launched for no features, nothing to count
         lk_track.launches += 1
+        lk_track.launches_by_levels[levels] = lk_track.launches_by_levels.get(levels, 0) + 1
     return out
 
 
 lk_track.launches = 0
+lk_track.launches_by_levels = {}
 
 CLOCK_FIELDS = ("template_cycles", "window_load_cycles", "loop_cycles", "kernel_cycles",
                 "window_loads", "iterations")

@@ -1,13 +1,24 @@
 """Stereo VO ("bimono") / stereo VIO ("bimonovio") pipeline.
 
-Port of ``sadvio_tpu/pipeline/slam.py`` (``StereoSLAM``) on the main path:
+Port of ``sadvio_tpu/pipeline/slam.py`` (``StereoSLAM``):
 
-  frontend  : pyramids + KLT from the last keyframe + PnP + epipolar gate
-              + ESKF fusion, one health vector read by the host per frame
-  insert_kf : grid detection + resurrection + stereo KLT + triangulation
+  frontend  : pyramids + KLT from the last keyframe (or BRIEF matching with
+              a level-0 KLT polish) + PnP (or essential-matrix RANSAC)
+              + epipolar gate + ESKF fusion, one health vector read by the
+              host per frame
+  insert_kf : grid detection + resurrection (from the window and, with
+              ``global_map``, from the descriptor archive) + stereo KLT
+              + triangulation
   backend   : window Schur-LM VI-BA + 3 px outlier gate
-  marg_roll : square-root marginalization into the sparsified prior +
-              window shift
+  marg_roll : marginalization into a sparsified or dense prior + window
+              shift; leaving landmarks are archived into the global map
+  long run  : with ``pose_graph`` each roll condenses the links between the
+              two oldest keyframes into a relative-pose edge; a burst of
+              archive resurrections is a revisit and yields a PnP loop
+              closure edge; ``optimize_archive`` solves the pose graph; after
+              a reset the bootstrap keyframe relocalizes against the archive
+  mesh3d    : Delaunay mesh over the landmarks + dense ray-cast cloud at
+              keyframe rate
 
 All estimator state lives in fixed-shape tensors on ``device``; the host
 loop reads back the health vector once per frame and a small state pack
@@ -30,11 +41,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sadvio_tpu_torch.backend import ba, marginalization as marg, viinit
+from sadvio_tpu_torch.backend import ba, marginalization as marg, posegraph as pg, viinit
+from sadvio_tpu_torch.data import globalmap as gmap
 from sadvio_tpu_torch.data.window import (
     LMK_RESURRECTED, ImuChain, Observations, PriorSet, Rig, WindowState,
 )
-from sadvio_tpu_torch.frontend import detect, epipolar, eskf as eskf_mod, klt, pnp, triangulate
+from sadvio_tpu_torch.frontend import (
+    detect, epipolar, eskf as eskf_mod, klt, match as match_mod, pnp, triangulate,
+)
+from sadvio_tpu_torch.mesh.mesh import MeshConfig, Mesher
 from sadvio_tpu_torch.models import cameras, imu as imu_mod
 from sadvio_tpu_torch.pipeline.config import SLAMConfig
 from sadvio_tpu_torch.utils import geometry as geo
@@ -64,14 +79,9 @@ def _check_config(cfg: SLAMConfig):
         "slam_mode": cfg.slam_mode not in ("bimono", "bimonovio"),
         "async_health": cfg.async_health,
         "multithreading": cfg.multithreading,
-        "mesh3d": cfg.mesh3d,
-        "tracker": cfg.tracker != "klt",
-        "pose_estimator": cfg.pose_estimator.lower() != "pnp",
+        "tracker": cfg.tracker not in ("klt", "matcher"),
+        "pose_estimator": not cfg.pose_estimator.lower().startswith(("pnp", "epipolar")),
         "optimizer": cfg.optimizer.lower().startswith("angular"),
-        "global_map": cfg.global_map,
-        "pose_graph": cfg.pose_graph,
-        "marg_f64": cfg.marginalization and cfg.marg_f64,
-        "sparsification": cfg.marginalization and not cfg.sparsification,
         "features": any(f.label.lower() != "pointxd" or f.detector.lower() in ("csv", "cvcsv")
                         for f in cfg.features),
     }
@@ -85,6 +95,14 @@ def _set(x, i, val):
     x = x.clone()
     x[i] = val
     return x
+
+
+def _odometry_edges(poses, covs):
+    """Relative-pose edges between consecutive (ts, R, t) host poses, weighted
+    by the endpoints' frame-rate pose covariance."""
+    return [(a[0], b[0], pg.relative_pose(a[1], a[2], b[1], b[2]),
+             pg.inflate_edge_info(np.eye(6) * 1e7, covs[j], covs[j + 1]))
+            for j, (a, b) in enumerate(zip(poses[:-1], poses[1:]))]
 
 
 class StereoSLAM:
@@ -110,7 +128,26 @@ class StereoSLAM:
         self.n_resets = 0
         self.traj = []  # (ts, R, t) at frame rate, host numpy
         self.kf_traj = []
-        self.archived_kf = []  # (ts, R, t) of keyframes rolled out of the window
+        self._lc_diag = (0, 0, False)  # (candidates, inliers, pnp_ok) of the last closure try
+        # archive of the keyframes rolled out of the window, and the
+        # pose-graph edges between them; timestamps stay host float64
+        self.archived_kf = []  # (ts, R, t) host-side append-only log
+        self.pose_graph_edges = []  # (ts0, ts1, dx (6,), inf (6,6))
+        # descriptor global map: archived landmark positions + BRIEF
+        # descriptors for long-range resurrection, on the device
+        self.global_map_state = None
+        self.lmk_desc = None
+        if config.global_map:
+            self.global_map_state = gmap.GlobalMap.create(config.archive_capacity,
+                                                          device=self.device)
+            self.lmk_desc = torch.zeros((self.caps.L, detect.DESC_BITS), dtype=torch.bool,
+                                        device=self.device)
+        self.mesher = None
+        if config.mesh3d and rig.C >= 2:
+            # the ray-cast depth window follows the landmark depth gate
+            self.mesher = Mesher(self.rig, MeshConfig(
+                zncc_tsh=config.zncc_tsh, max_edge_len=config.max_length_tsh,
+                max_ray_depth=MeshConfig().max_lmk_depth))
         # current-frame estimate and constant-velocity model (kept by reset)
         self.R_cur = torch.eye(3, device=self.device)
         self.t_cur = torch.zeros(3, device=self.device)
@@ -132,6 +169,10 @@ class StereoSLAM:
         self.kf_tmpl = None
         self.n_kf = 0
         self.kf_ts = []  # host mirror of the window slots' timestamps
+        # frame-rate ESKF pose covariance: host mirror + one record per
+        # window keyframe, used to weight pose-graph edges
+        self._cov_h = np.zeros((6, 6))
+        self.kf_cov = []
         self.initialized = False
         self.vi_initialized = not self.vio
         self.successive_fails = 0
@@ -182,26 +223,57 @@ class StereoSLAM:
         warp_ok = has3d & window.lmk_mask & vis & (z_cur > 0.1)
         A = torch.where(warp_ok[:, None, None], A, torch.eye(2, device=dev))
 
-        uv1, ok, _ = klt.track(pyr_kf[0], pyr_new[0], tracks.uv_kf[0], init, tracks.valid[0],
-                               levels=self.caps.pyr_levels, radius=self.caps.klt_radius,
-                               warp=A, tmpl_wins=kf_tmpl, engine=self.klt_engine)
+        if self.cfg.tracker == "matcher":
+            # descriptor-matcher tracking: detect candidates in the new
+            # frame and BRIEF-match the last keyframe's features against
+            # them inside a box around the prediction
+            uv_c, _, v_c = detect.detect_features(
+                pyr_new[0][0], existing_uv=torch.zeros((self.caps.L, 2), device=dev),
+                existing_valid=torch.zeros(self.caps.L, dtype=torch.bool, device=dev),
+                gh=8, gw=10, k_per_cell=max(2, self.cfg.features[0].n_per_cell))
+            desc_c = detect.brief_describe(detect.smooth3(pyr_new[0][0]), uv_c)
+            desc_t = detect.brief_describe(detect.smooth3(pyr_kf[0][0]), tracks.uv_kf[0])
+            idx, _ = match_mod.match(desc_t, init, tracks.valid[0], desc_c, uv_c, v_c,
+                                     search_radius=30.0)
+            uv_m = torch.where((idx >= 0)[:, None], uv_c[torch.clamp(idx, min=0)], init)
+            ok = tracks.valid[0] & (idx >= 0)
+            # sub-pixel polish: matched detections are integer-pixel, a
+            # level-0 LK refinement from the keyframe template closes the gap
+            uv1, ok_r, _ = klt.track(pyr_kf[0], pyr_new[0], tracks.uv_kf[0], uv_m, ok, levels=1,
+                                     radius=self.caps.klt_radius, warp=A, engine=self.klt_engine)
+            # keep the raw match where the polish diverges
+            uv1 = torch.where(ok_r[:, None], uv1, uv_m)
+        else:
+            uv1, ok, _ = klt.track(pyr_kf[0], pyr_new[0], tracks.uv_kf[0], init, tracks.valid[0],
+                                   levels=self.caps.pyr_levels, radius=self.caps.klt_radius,
+                                   warp=A, tmpl_wins=kf_tmpl, engine=self.klt_engine)
 
-        lmk_ok = ok & has3d & window.lmk_mask
-        R_new, t_new, inliers, pnp_ok, _ = pnp.pnp_ransac(
-            cam0, Rfs0, tfs0, lmk, uv1, lmk_ok, R_pred, t_pred, self.gen)
-        # constant-velocity sanity at 1000%: a PnP translation 10x away
-        # from the predicted one forces the prediction and reports failure
-        R_kfT = R_kf.T
-        t_rel_est = R_kfT @ (t_new - t_kf)
-        t_rel_prd = R_kfT @ (t_pred - t_kf)
-        n_est = torch.linalg.norm(t_rel_est)
-        dev_ratio = torch.linalg.norm(t_rel_est - t_rel_prd) / torch.clamp(n_est, min=1e-9)
-        cv_fail = (n_est > 0.01) & (torch.linalg.norm(t_rel_prd) > 0.01) & (dev_ratio > 10.0)
-        pnp_ok = pnp_ok & ~cv_fail
-        R_new = torch.where(pnp_ok, R_new, R_pred)
-        t_new = torch.where(pnp_ok, t_new, t_pred)
-        # the inlier gate applies only when the solve succeeded
-        ok = ok & (~lmk_ok | inliers | ~pnp_ok)
+        if self.cfg.pose_estimator.lower().startswith("epipolar"):
+            # essential-matrix RANSAC over the keyframe->frame ray matches is
+            # the success check and the inlier gate; the pose stays the
+            # motion prediction
+            _, _, inliers, pnp_ok = epipolar.essential_ransac(
+                cam0.backproject(tracks.uv_kf[0]), cam0.backproject(uv1), ok, self.gen)
+            R_new, t_new = R_pred, t_pred
+            ok = ok & (~pnp_ok | inliers)
+        else:
+            lmk_ok = ok & has3d & window.lmk_mask
+            R_new, t_new, inliers, pnp_ok, _ = pnp.pnp_ransac(
+                cam0, Rfs0, tfs0, lmk, uv1, lmk_ok, R_pred, t_pred, self.gen)
+            # constant-velocity sanity at 1000%: a PnP translation 10x away
+            # from the predicted one forces the prediction and reports failure
+            R_kfT = R_kf.T
+            t_rel_est = R_kfT @ (t_new - t_kf)
+            t_rel_prd = R_kfT @ (t_pred - t_kf)
+            n_est = torch.linalg.norm(t_rel_est)
+            dev_ratio = torch.linalg.norm(t_rel_est - t_rel_prd) / torch.clamp(n_est, min=1e-9)
+            cv_fail = ((n_est > 0.01) & (torch.linalg.norm(t_rel_prd) > 0.01)
+                       & (dev_ratio > 10.0))
+            pnp_ok = pnp_ok & ~cv_fail
+            R_new = torch.where(pnp_ok, R_new, R_pred)
+            t_new = torch.where(pnp_ok, t_new, t_pred)
+            # the inlier gate applies only when the solve succeeded
+            ok = ok & (~lmk_ok | inliers | ~pnp_ok)
 
         # epipolar gate against the last KF (0.5 deg)
         R_ws_kf, t_ws_kf = geo.pose_compose(R_kf, t_kf, Rfs0, tfs0)
@@ -240,9 +312,15 @@ class StereoSLAM:
 
     def _insert_kf(self, pyr_new, tracks: TrackState, window: WindowState, obs: Observations,
                    imu_chain: ImuChain, pre_cur, R_kf, t_kf, v_kf, ts: float, slot: int,
-                   imu_gap_ok: bool = True):
+                   imu_gap_ok: bool = True, gm=None, lmk_desc=None):
         """Insert a keyframe at ``slot``: detect, resurrect, stereo-track,
-        triangulate, write the observation rows."""
+        triangulate, write the observation rows.
+
+        Returns (tracks, window, obs, imu_chain); with a global map ``gm``
+        also (lmk_desc, gm_counts, gm_pack): the slot descriptors refreshed
+        at this keyframe, [claimed resurrections, archive hits] and the
+        per-detection loop-closure material [uv(2), archived landmark(3),
+        source keyframe index(1), hit(1)]."""
         dev = self.device
         cam0, cam1 = self.rig.cam.camera(0), self.rig.cam.camera(1)
         Rfs, tfs = self.rig.R_f_s, self.rig.t_f_s
@@ -290,6 +368,28 @@ class StereoSLAM:
             (slot_of_det,), take)[:L]
         obs = obs.replace(mask=obs.mask & ~claimed[None, None, :])
 
+        # 1c. long-range resurrection from the descriptor global map: fresh
+        # detections that match an archived landmark by projection + BRIEF
+        # descriptor adopt its archived position, so the map re-uses old
+        # structure when the camera revisits it
+        if gm is not None:
+            sm0 = detect.smooth3(img0)
+            lmk_arch, hit_a, src_a = gmap.resurrect(
+                gm, cam0, R_kf, t_kf, Rfs[0], tfs[0], uv_det,
+                detect.brief_describe(sm0, uv_det), v_det)
+            upd = hit_a & take  # only detections that claimed a slot
+            upd_slot = torch.where(upd, slot_of_det, L)
+            window = window.replace(
+                lmk=gmap.put_rows(window.lmk, upd_slot, lmk_arch),
+                lmk_mask=gmap.put_rows(window.lmk_mask, upd_slot, torch.ones_like(upd)),
+                lmk_flags=gmap.put_rows(window.lmk_flags, upd_slot,
+                               torch.full_like(upd_slot, LMK_RESURRECTED)))
+            # every confident 2D-3D re-association (not only the
+            # slot-claiming ones) is loop-closure material
+            gm_pack = torch.cat([uv_det, lmk_arch, src_a[:, None].float(),
+                                 hit_a[:, None].float()], -1)
+            gm_counts = torch.stack([upd.sum(), hit_a.sum()])
+
         # 2. stereo track cam0 -> cam1 and the static epipolar gate
         uv1, ok1, _ = klt.track(pyr_new[0], pyr_new[1], new_uv0, new_uv0, new_v0,
                                 levels=self.caps.pyr_levels, radius=self.caps.klt_radius,
@@ -328,6 +428,11 @@ class StereoSLAM:
                 mask=_set(imu_chain.mask, prev, (pre_cur.dt > 1e-6) & imu_gap_ok))
         tracks = TrackState(uv=torch.stack([new_uv0, uv1]), valid=torch.stack([new_v0, ok1]),
                             uv_kf=torch.stack([new_uv0, uv1]), has3d=lmk_mask)
+        if gm is not None:
+            # refresh the slot descriptors at this keyframe (archived on marginalize)
+            lmk_desc = torch.where(new_v0[:, None], detect.brief_describe(sm0, new_uv0),
+                                   lmk_desc)
+            return tracks, window, obs, imu_chain, lmk_desc, gm_counts, gm_pack
         return tracks, window, obs, imu_chain
 
     def _backend(self, window, obs, imu_chain, priors, fixed_n: int):
@@ -342,11 +447,16 @@ class StereoSLAM:
         new_window = new_window.replace(lmk_mask=new_window.lmk_mask & ~starved)
         return new_window, obs, stats
 
-    def _marg_roll(self, window, obs, imu_chain, priors, tracks, vio: bool):
-        """Marginalize slot 0 and shift the window left by one."""
+    def _marg_roll(self, window, obs, imu_chain, priors, tracks, vio: bool, gm=None,
+                   lmk_desc=None, arch_idx=None):
+        """Marginalize slot 0 and shift the window left by one.  With a
+        global map ``gm`` the landmarks that leave the map are archived
+        (position + BRIEF descriptor) and the new map is returned before
+        the overflow count."""
         if self.cfg.marginalization:
-            new_priors, info = marg.marginalize(window, obs, self.rig, imu_chain, priors,
-                                                self._ba_opts, vio=vio, sparsify=True)
+            new_priors, info = marg.marginalize(
+                window, obs, self.rig, imu_chain, priors, self._ba_opts, vio=vio,
+                sparsify=self.cfg.sparsification, f64=self.cfg.marg_f64)
             marg_lmk, n_overflow, degen = (info["marg_lmk"], info["n_keep_overflow"],
                                            info["degenerate"])
         else:
@@ -357,6 +467,8 @@ class StereoSLAM:
             n_overflow = torch.zeros((), dtype=torch.int64, device=self.device)
             degen = torch.zeros((), dtype=torch.bool, device=self.device)
         new_priors = marg.shift_priors(new_priors)
+        if gm is not None:
+            gm = gmap.archive(gm, window.lmk, lmk_desc, marg_lmk, src_idx=arch_idx)
         roll = lambda x: torch.roll(x, -1, 0)
         last_off = lambda x: _set(roll(x), -1, False)
         window = window.replace(
@@ -368,6 +480,8 @@ class StereoSLAM:
                                       mask=last_off(imu_chain.mask))
         tracks = tracks.replace(valid=tracks.valid & ~marg_lmk[None, :],
                                 has3d=tracks.has3d & ~marg_lmk)
+        if gm is not None:
+            return window, obs, imu_chain, new_priors, tracks, gm, n_overflow, degen
         return window, obs, imu_chain, new_priors, tracks, n_overflow, degen
 
     # ------------------------------------------------------------------
@@ -412,6 +526,7 @@ class StereoSLAM:
     def _ingest_health(self, ts, health_h):
         pnp_ok = bool(health_h[0] > 0.5)
         self.successive_fails = 0 if pnp_ok else self.successive_fails + 1
+        self._cov_h = health_h[19:55].reshape(6, 6).copy()
         self.traj.append((ts, health_h[4:13].reshape(3, 3).copy(), health_h[13:16].copy()))
 
     def process_frame(self, frame) -> dict:
@@ -425,10 +540,34 @@ class StereoSLAM:
         if not self.initialized:
             R0 = self._gravity_align_init(frame) if self.vio else torch.eye(3, device=dev)
             t0 = torch.zeros(3, device=dev)
+            # relocalization after a tracking failure: reset() keeps the
+            # global map and the last pose estimate; if enough archived
+            # landmarks re-associate around that pose, the bootstrap
+            # keyframe continues the original gauge instead of re-zeroing
+            if self.global_map_state is not None and self.n_resets > 0:
+                rl = self._try_relocalize(pyr_new[0][0])
+                if rl is not None:
+                    R0, t0 = rl
+                    out["relocalized"] = True
             self.R_cur, self.t_cur = R0, t0
-            self.tracks, self.window, self.obs, self.imu = self._insert_kf(
+            ins = self._insert_kf(
                 pyr_new, self.tracks, self.window, self.obs, self.imu, self.pre_cur,
-                R0, t0, torch.zeros(3, device=dev), float(frame.ts), 0)
+                R0, t0, torch.zeros(3, device=dev), float(frame.ts), 0,
+                gm=self.global_map_state, lmk_desc=self.lmk_desc)
+            self.tracks, self.window, self.obs, self.imu = ins[:4]
+            R0_h, t0_h = R0.cpu().numpy(), t0.cpu().numpy()
+            if self.global_map_state is not None:
+                self.lmk_desc, gm_counts, gm_pack = ins[4:]
+                counts_h = gm_counts.cpu().numpy()
+                out["gm_resurrected"] = int(counts_h[0])
+                # the relocalized bootstrap keyframe was just re-associated
+                # against the archive around the kept pose: emit the loop
+                # edge to the archived anchor now
+                if (out.get("relocalized") and self.cfg.pose_graph and self.archived_kf
+                        and int(counts_h[1]) >= self.cfg.lc_min_hits):
+                    lc = self._try_loop_closure(gm_pack, frame.ts, R0_h, t0_h)
+                    if lc is not None:
+                        out["loop_closure"] = lc
             self.n_kf = 1
             self.pre_cur = self._pre_id
             self._imu_n = 0
@@ -436,7 +575,7 @@ class StereoSLAM:
             self.kf_tmpl = self._template_cache(pyr_new, self.tracks.uv_kf[0])
             self.initialized = True
             self.kf_ts.append(frame.ts)
-            R0_h, t0_h = R0.cpu().numpy(), t0.cpu().numpy()
+            self.kf_cov.append(np.zeros((6, 6)))
             self.kf_traj.append((frame.ts, R0_h, t0_h))
             self.traj.append((frame.ts, R0_h, t0_h))
             out["is_kf"] = True
@@ -479,22 +618,50 @@ class StereoSLAM:
         n_ovf = torch.zeros((), dtype=torch.int64, device=dev)
         degen = torch.zeros((), dtype=torch.bool, device=dev)
         if self.n_kf >= K:
-            self.archived_kf.append((self.kf_ts[0], self.window.R[0].cpu().numpy(),
-                                     self.window.t[0].cpu().numpy()))
-            (self.window, self.obs, self.imu, self.priors, self.tracks, n_ovf,
-             degen) = self._marg_roll(self.window, self.obs, self.imu, self.priors,
-                                      self.tracks, self.vio and self.vi_initialized)
+            # archive the leaving keyframe; with pose_graph, condense its
+            # links to the next keyframe into a relative-pose edge.  Pose
+            # and edge ride one device-to-host copy; timestamps come from
+            # the host mirror
+            vio_now = self.vio and self.vi_initialized
+            pose0 = [self.window.R[0].reshape(-1), self.window.t[0]]
+            if self.cfg.pose_graph:
+                dx_e, inf_e, n_sh = marg.marginalize_relative(
+                    self.window, self.obs, self.rig, self.imu, self._ba_opts, vio=vio_now)
+                pose0 += [dx_e, inf_e.reshape(-1), n_sh.float()[None]]
+            pk0 = torch.cat(pose0).cpu().numpy()
+            self.archived_kf.append((self.kf_ts[0], pk0[:9].reshape(3, 3), pk0[9:12].copy()))
+            if self.cfg.pose_graph and pk0[54] > 0:  # shared landmarks: the edge is informative
+                inf_np = pg.inflate_edge_info(pk0[18:54].reshape(6, 6), self.kf_cov[0],
+                                              self.kf_cov[1])
+                self.pose_graph_edges.append((self.kf_ts[0], self.kf_ts[1], pk0[12:18].copy(),
+                                              inf_np))
+            mr = self._marg_roll(self.window, self.obs, self.imu, self.priors, self.tracks,
+                                 vio_now, gm=self.global_map_state, lmk_desc=self.lmk_desc,
+                                 arch_idx=len(self.archived_kf) - 1)
+            if self.global_map_state is not None:
+                (self.window, self.obs, self.imu, self.priors, self.tracks,
+                 self.global_map_state, n_ovf, degen) = mr
+            else:
+                self.window, self.obs, self.imu, self.priors, self.tracks, n_ovf, degen = mr
             if self.cfg.marginalization:
                 self._have_priors = True
             self.kf_ts.pop(0)
+            self.kf_cov.pop(0)
             self.n_kf = K - 1
+            self._maybe_compact_archive()
         slot = self.n_kf
         gap_ok = (not self.kf_ts) or (frame.ts - self.kf_ts[-1]) <= 1.0
-        self.tracks, self.window, self.obs, self.imu = self._insert_kf(
+        ins = self._insert_kf(
             pyr_new, self.tracks, self.window, self.obs, self.imu, self.pre_cur,
-            R_new, t_new, v_pred, float(frame.ts), slot, imu_gap_ok=bool(gap_ok))
+            R_new, t_new, v_pred, float(frame.ts), slot, imu_gap_ok=bool(gap_ok),
+            gm=self.global_map_state, lmk_desc=self.lmk_desc)
+        self.tracks, self.window, self.obs, self.imu = ins[:4]
+        gm_counts = gm_pack = None
+        if self.global_map_state is not None:
+            self.lmk_desc, gm_counts, gm_pack = ins[4:]
         self.n_kf += 1
         self.kf_ts.append(frame.ts)
+        self.kf_cov.append(self._cov_h)
         self.kf_pyr = pyr_new
         self.kf_tmpl = self._template_cache(pyr_new, self.tracks.uv_kf[0])
         self.pre_cur = self._pre_id.replace(ba_lin=self.window.ba[slot],
@@ -515,14 +682,32 @@ class StereoSLAM:
         if self.vio and not self.vi_initialized and self.n_kf >= self.vio_init_kfs:
             self._run_vi_init()
         w = self.window
-        pk = torch.cat([w.R[slot].reshape(-1), w.t[slot], w.v[slot], w.ba[slot], w.bg[slot],
-                        torch.stack([n_ovf.float(), degen.float(),
-                                     stats["cost"].float()])]).cpu().numpy()
+        parts = [w.R[slot].reshape(-1), w.t[slot], w.v[slot], w.ba[slot], w.bg[slot],
+                 torch.stack([n_ovf.float(), degen.float(), stats["cost"].float()])]
+        if gm_counts is not None:
+            parts.append(gm_counts.float())
+        pk = torch.cat(parts).cpu().numpy()  # the keyframe's one state copy
         self.kf_traj.append((frame.ts, pk[:9].reshape(3, 3), pk[9:12]))
         out["keep_overflow"] = int(pk[21])
         out["marg_degenerate"] = bool(pk[22] > 0.5)
         out["ba_cost"] = float(pk[23])
+        if gm_counts is not None:
+            out["gm_resurrected"] = int(pk[24])
+            # loop closure: a burst of descriptor resurrections is a revisit
+            # signal.  The hit count (riding the copy above) gates the copy
+            # of the per-detection pack, so other keyframes never pay it;
+            # the PnP warm-starts at the post-BA keyframe pose
+            if (self.cfg.pose_graph and self.archived_kf
+                    and int(pk[25]) >= self.cfg.lc_min_hits):
+                lc = self._try_loop_closure(gm_pack, frame.ts, pk[:9].reshape(3, 3), pk[9:12])
+                out["lc_diag"] = self._lc_diag
+                if lc is not None:
+                    out["loop_closure"] = lc
         out["vi_initialized"] = self.vi_initialized
+        if self.mesher is not None:  # densification at keyframe rate
+            imgs = torch.stack([pyr_new[c][0] for c in range(2)])
+            self.mesher.update(imgs, self.window, self.R_cur, self.t_cur)
+            out["mesh_triangles"] = int(self.mesher.tri_mask.sum())
         return out
 
     def _run_vi_init(self):
@@ -551,8 +736,177 @@ class StereoSLAM:
         self.R_cur, self.t_cur, self.v_cur = self.window.R[k], self.window.t[k], self.window.v[k]
         self.pre_cur = self.pre_cur.replace(ba_lin=self.window.ba[k], bg_lin=self.window.bg[k])
 
+    def _probe_archive(self, img0, R_seed, t_seed):
+        """Detect fresh features and re-associate them against the archive
+        around the seed pose, in the wide box of ``reloc_search_px`` (the
+        pose drifted during the failure).  Returns (uv (M,2), archived
+        landmark (M,3), hit (M,)).  Parallels step 1c of _insert_kf, with
+        no live tracks to respect."""
+        L = self.caps.L
+        dev = self.device
+        uv_det, _, v_det = detect.detect_features(
+            img0, existing_uv=torch.zeros((L, 2), device=dev),
+            existing_valid=torch.zeros(L, dtype=torch.bool, device=dev),
+            gh=8, gw=10, k_per_cell=max(1, self.cfg.features[0].n_per_cell))
+        det_desc = detect.brief_describe(detect.smooth3(img0), uv_det)
+        lmk_arch, hit, _ = gmap.resurrect(
+            self.global_map_state, self.rig.cam.camera(0), R_seed, t_seed, self.rig.R_f_s[0],
+            self.rig.t_f_s[0], uv_det, det_desc, v_det, search_px=self.cfg.reloc_search_px)
+        return uv_det, lmk_arch, hit
+
+    def _try_relocalize(self, img0):
+        """Re-anchor the post-reset bootstrap pose against the archived map.
+
+        Local relocalization: the last pose estimate (kept across reset())
+        seeds both the archive projection search and the PnP warm start.
+        The recovery scenario is tracking loss from occlusion or blur with
+        the camera still near its last estimate, not the kidnapped-robot
+        problem.  Returns (R0, t0) in the original gauge, or None."""
+        uv, lmk, hit = self._probe_archive(img0, self.R_cur, self.t_cur)
+        min_hits = self.cfg.lc_min_hits
+        R_p, t_p, inl, ok, _ = pnp.pnp_ransac(
+            self.rig.cam.camera(0), self.rig.R_f_s[0], self.rig.t_f_s[0], lmk, uv, hit,
+            self.R_cur, self.t_cur, self.gen, min_inliers=min_hits, inlier_px=3.0)
+        n_hit, n_inl, ok_h = torch.stack([hit.sum(), inl.sum(), ok.long()]).tolist()
+        if n_hit < min_hits or not ok_h:
+            return None
+        if n_inl < max(min_hits, int(self.cfg.reloc_consensus * n_hit)):
+            return None
+        return R_p, t_p
+
+    def _try_loop_closure(self, gm_pack, ts_cur, R_cur, t_cur):
+        """Emit a loop-closure pose-graph edge from a resurrection burst.
+
+        gm_pack (M,7): per-detection [uv, archived landmark, source keyframe
+        index, hit] from _insert_kf; R_cur, t_cur: the keyframe's pose on
+        the host.  Solves PnP of the current keyframe against all
+        re-associated archived landmark positions: the archive shares one
+        world gauge, so hits from several archived keyframes jointly
+        constrain the revisit.  The PnP-against-archive pose is the edge
+        measurement: it expresses the current keyframe directly in the
+        archive gauge, whereas the post-BA pose still carries the window's
+        accumulated drift.  The edge anchors at the dominant source
+        keyframe and is weighted by the PnP covariance inflated with the
+        frame-rate ESKF covariance.  Returns (ts_archived, ts_cur) or None."""
+        dev = self.device
+        pk = gm_pack.cpu().numpy()
+        src = pk[:, 5].astype(np.int64)
+        cand = (pk[:, 6] > 0.5) & (src >= 0) & (src < len(self.archived_kf))
+        n_cand = int(cand.sum())
+        min_hits = self.cfg.lc_min_hits
+        if n_cand < min_hits:
+            self._lc_diag = (n_cand, 0, False)
+            return None
+        vals, counts = np.unique(src[cand], return_counts=True)
+        dom = int(vals[np.argmax(counts)])
+        # closures are rare and their pose is the edge measurement: spend
+        # more hypotheses and refinement than the frame-rate PnP
+        f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        R_p, t_p, inl, ok, cov = pnp.pnp_ransac(
+            self.rig.cam.camera(0), self.rig.R_f_s[0], self.rig.t_f_s[0], gm_pack[:, 2:5],
+            gm_pack[:, 0:2], torch.as_tensor(cand, device=dev), f32(R_cur), f32(t_cur),
+            self.gen, min_inliers=min_hits, n_hyp=128, refine_iters=12)
+        res = torch.cat([R_p.reshape(-1), t_p, cov.reshape(-1),
+                         torch.stack([inl.sum(), ok.long()]).float()]).cpu().numpy()
+        n_inl, ok_h = int(res[48]), bool(res[49] > 0.5)
+        self._lc_diag = (n_cand, n_inl, ok_h)
+        # descriptor re-association on weak texture admits false matches
+        # inside the search box; a closure is trusted only when the PnP
+        # consensus covers a solid majority of the candidates
+        if not ok_h or n_inl < max(min_hits, int(self.cfg.lc_consensus * n_cand)):
+            return None
+        ts_a, R_a, t_a = self.archived_kf[dom]
+        dx = pg.relative_pose(R_a, t_a, res[:9].reshape(3, 3), res[9:12])
+        # weighted with the current frame's ESKF covariance: the edge
+        # attaches to the keyframe being inserted now
+        inf = pg.inflate_edge_info(
+            np.linalg.inv(res[12:48].reshape(6, 6).astype(np.float64) + 1e-9 * np.eye(6)),
+            self._cov_h, np.zeros((6, 6)))
+        self.pose_graph_edges.append((ts_a, ts_cur, dx, inf))
+        return (float(ts_a), float(ts_cur))
+
+    def _maybe_compact_archive(self):
+        """Bound the host-side archive: when the archived node count exceeds
+        archive_max_nodes, remove the oldest chain-interior nodes by edge
+        composition (posegraph.compact_archive) and remap the global map's
+        archiving-keyframe provenance.  Loop-closure endpoints are never
+        removed, so the cap is soft under many closures."""
+        cap = self.cfg.archive_max_nodes
+        if not cap or len(self.archived_kf) <= cap:
+            return
+        nodes, edges, remap = pg.compact_archive(self.archived_kf, self.pose_graph_edges, cap)
+        if len(nodes) == len(self.archived_kf):
+            return
+        self.archived_kf = nodes
+        self.pose_graph_edges = edges
+        gm = self.global_map_state
+        if gm is not None:
+            remap_t = torch.as_tensor(remap, dtype=torch.int64, device=self.device)
+            safe = torch.clamp(gm.src, 0, len(remap) - 1)
+            self.global_map_state = gm.replace(src=torch.where(gm.src >= 0, remap_t[safe], -1))
+
+    def _window_poses(self):
+        """[(ts, R, t)] of the live window keyframes, host numpy, one copy."""
+        n = len(self.kf_ts)
+        pk = torch.cat([self.window.R[:n].reshape(n, 9), self.window.t[:n]], 1).cpu().numpy()
+        return [(ts, pk[j, :9].reshape(3, 3), pk[j, 9:]) for j, ts in enumerate(self.kf_ts)]
+
+    def optimize_archive(self, max_nodes=None):
+        """Pose-graph optimization over the archived keyframes + the current
+        window.
+
+        max_nodes (default archive_max_nodes): nodes older than the newest
+        max_nodes are held fixed (anchors), windowing the correction;
+        together with _maybe_compact_archive this keeps the solve bounded
+        over arbitrarily long runs.
+
+        Besides the persisted relative-pose and loop-closure edges,
+        odometric continuity edges between consecutive live-window nodes are
+        synthesized from the current estimates: without them a loop edge is
+        the newest nodes' only constraint and teleports them to the raw PnP
+        pose; with them, several loop measurements fuse with odometry.
+
+        Returns the corrected trajectory [(ts, R, t)] over archive + window
+        nodes; with no edges, returns the nodes unchanged."""
+        win_poses = self._window_poses()
+        nodes = list(self.archived_kf) + win_poses
+        if len(nodes) < 2 or not self.pose_graph_edges:
+            return nodes
+        dev = self.device
+        ts_list = [n[0] for n in nodes]
+        ea, eb, dx, W, emask = pg.edges_from_archive(
+            self.pose_graph_edges + _odometry_edges(win_poses, self.kf_cov), ts_list, device=dev)
+        if ea.shape[0] == 0:
+            return nodes
+        f32 = lambda xs: torch.as_tensor(np.stack(xs).astype(np.float32), device=dev)
+        cap = self.cfg.archive_max_nodes if max_nodes is None else max_nodes
+        node_mask = torch.ones(len(nodes), dtype=torch.bool, device=dev)
+        if cap and len(nodes) > cap:
+            node_mask[: len(nodes) - cap] = False  # old nodes: fixed anchors
+        Rn, tn, _ = pg.optimize_pose_graph(f32([n[1] for n in nodes]), f32([n[2] for n in nodes]),
+                                           node_mask, ea, eb, dx, W, emask)
+        Rn, tn = Rn.cpu().numpy(), tn.cpu().numpy()
+        return [(ts_list[i], Rn[i], tn[i]) for i in range(len(nodes))]
+
     def reset(self):
-        """Re-initialize after a tracking failure."""
+        """Re-initialize after a tracking failure.  The current pose estimate,
+        the global map, the archive and the pose graph are kept: with
+        ``global_map`` the live local map is pushed into the archive first
+        (the freshest good landmarks are what a relocalization needs), the
+        window keyframes join the archived trajectory, and the archived
+        landmarks anchor at the last of them."""
+        if self.global_map_state is not None and self.n_kf > 0:
+            poses = self._window_poses()
+            self.archived_kf.extend(poses)
+            # odometric edges among the newly archived nodes: roll-time edges
+            # do not cover them, and a loop closure to a floating chain
+            # would correct nothing
+            if self.cfg.pose_graph:
+                self.pose_graph_edges.extend(_odometry_edges(poses, self.kf_cov))
+            self.global_map_state = gmap.archive(
+                self.global_map_state, self.window.lmk, self.lmk_desc, self.window.lmk_mask,
+                src_idx=len(self.archived_kf) - 1)
+            self._maybe_compact_archive()
         self._clear()
         self.n_resets += 1
 

@@ -1,7 +1,8 @@
 """Synthetic EuRoC-like world: rendered stereo stream + IMU + ground truth.
 
-Port of the main-path subset of ``sadvio_tpu/pipeline/synthetic.py``
-(pinhole rig, no line segments, the default trajectory).  The scene is a
+Port of the pinhole, point-feature part of
+``sadvio_tpu/pipeline/synthetic.py`` (no line segments, no exposure jitter
+or occluder) with both trajectories.  The scene is a
 wall of Gaussian intensity blobs rendered with torch on the caller's
 device; IMU samples come from the analytic trajectory by high-rate finite
 differences in float64 on the host.  With the same arguments it draws the
@@ -74,8 +75,18 @@ def render_view(cam_f, cam_c, R_w_f, t_w_f, R_f_s, t_f_s, pts, intens, width: in
     return torch.clamp(img, 0.0, 255.0)
 
 
-def _trajectory(t, rot_scale=1.0):
-    """Analytic trajectory (f64): lateral sweep + gentle bob, looking at +z."""
+def _trajectory(t, rot_scale=1.0, mode="default"):
+    """Analytic trajectory (f64): lateral sweep + gentle bob, looking at +z.
+
+    mode="excursion": pan out 2.2 m to the right with a co-directed yaw and
+    come back.  The start-of-run landmarks leave the field of view
+    mid-excursion (with global_map they are archived), and the return is a
+    revisit that exercises descriptor resurrection and loop closure."""
+    if mode == "excursion":
+        T = max(float(t[-1]), 1e-6)
+        s = np.sin(np.pi * t / T)
+        p = np.stack([2.2 * s, 0.12 * np.sin(0.9 * t + 0.7), 0.08 * np.sin(0.7 * t)], -1)
+        return p, 0.5 * s, 0.04 * np.sin(0.8 * t + 1.0)
     p = np.stack([0.8 * np.sin(0.5 * t), 0.4 * np.sin(0.3 * t + 0.7),
                   0.15 * np.sin(0.23 * t)], -1)
     yaw = 0.12 * rot_scale * np.sin(0.4 * t)
@@ -92,9 +103,10 @@ def _rot(yaw, pitch):
 
 
 def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=240,
-               n_points=240, noise_px=0.0, imu_noise=True, rot_scale=1.0,
-               device=None) -> SyntheticWorld:
-    """Blob-wall world seen by a stereo pinhole rig on the default trajectory.
+               n_points=240, noise_px=0.0, imu_noise=True, rot_scale=1.0, trajectory="default",
+               wall_x=(-5.0, 5.0), device=None) -> SyntheticWorld:
+    """Blob-wall world seen by a stereo pinhole rig.  ``trajectory``:
+    "default" or "excursion"; ``wall_x``: horizontal extent of the wall.
 
     Images are rendered on ``device`` (None: the CUDA card) and returned as
     numpy arrays."""
@@ -106,10 +118,10 @@ def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=
     params = imu_mod.ImuParams.euroc()
     g = np.array([0.0, 0.0, -imu_mod.GRAVITY])
 
-    span_x = 10.0
+    span_x = wall_x[1] - wall_x[0]
     gx = int(np.ceil(np.sqrt(n_points * span_x / 7.0)))
     gy = int(np.ceil(n_points / gx))
-    xs = np.linspace(-5.0, 5.0, gx)
+    xs = np.linspace(wall_x[0], wall_x[1], gx)
     ys = np.linspace(-3.5, 3.5, gy)
     gxx, gyy = np.meshgrid(xs, ys)
     cell = np.array([xs[1] - xs[0], ys[1] - ys[0]])
@@ -124,7 +136,7 @@ def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=
     n_sub = int(round(imu_rate / fps))
     dt_imu = 1.0 / imu_rate
     t_dense = np.arange(n_frames * n_sub + 1) * dt_imu
-    p_d, yaw_d, pitch_d = _trajectory(t_dense, rot_scale)
+    p_d, yaw_d, pitch_d = _trajectory(t_dense, rot_scale, mode=trajectory)
     R_d = np.stack([_rot(y, pp) for y, pp in zip(yaw_d, pitch_d)])
     v_d = np.gradient(p_d, dt_imu, axis=0)
     a_d = np.gradient(v_d, dt_imu, axis=0)

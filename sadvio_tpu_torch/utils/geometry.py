@@ -200,3 +200,16 @@ def inv3x3(A: torch.Tensor) -> torch.Tensor:
         torch.stack([A20, A21, A22], -1),
     ], -2)
     return adj / det[..., None, None]
+
+
+def barycentric_coords(p, a, b, c):
+    """2D barycentric coordinates of p in triangle (a,b,c); all (...,2).
+    Returns (u, v, w) with u+v+w=1; inside iff all >= 0."""
+    v0, v1, v2 = b - a, c - a, p - a
+    d00, d01, d11 = (v0 * v0).sum(-1), (v0 * v1).sum(-1), (v1 * v1).sum(-1)
+    d20, d21 = (v2 * v0).sum(-1), (v2 * v1).sum(-1)
+    denom = d00 * d11 - d01 * d01
+    denom = torch.where(denom.abs() < _EPS, torch.full_like(denom, _EPS), denom)
+    v = (d11 * d20 - d01 * d21) / denom
+    w = (d00 * d21 - d01 * d20) / denom
+    return 1.0 - v - w, v, w

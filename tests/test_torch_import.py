@@ -27,6 +27,7 @@ MODULES = [
     "sadvio_tpu_torch.frontend.detect",
     "sadvio_tpu_torch.ops.klt_kernel",
     "sadvio_tpu_torch.frontend.klt",
+    "sadvio_tpu_torch.frontend.match",
     "sadvio_tpu_torch.frontend.epipolar",
     "sadvio_tpu_torch.frontend.triangulate",
     "sadvio_tpu_torch.frontend.pnp",
@@ -35,6 +36,9 @@ MODULES = [
     "sadvio_tpu_torch.backend.ba",
     "sadvio_tpu_torch.backend.marginalization",
     "sadvio_tpu_torch.backend.viinit",
+    "sadvio_tpu_torch.backend.posegraph",
+    "sadvio_tpu_torch.data.globalmap",
+    "sadvio_tpu_torch.mesh.mesh",
     "sadvio_tpu_torch.pipeline.synthetic",
     "sadvio_tpu_torch.pipeline.slam",
 ]

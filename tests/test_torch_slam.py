@@ -132,12 +132,17 @@ def test_pre_vi_init_prediction_is_constant_velocity(runs):
 
 def test_unported_config_keys_raise(runs):
     rig = runs["ts"].rig
-    for change in (dict(async_health=True), dict(tracker="matcher"), dict(pose_graph=True),
-                   dict(global_map=True), dict(marg_f64=True), dict(sparsification=False),
-                   dict(multithreading=True), dict(pose_estimator="epipolar"),
-                   dict(slam_mode="mono")):
-        with pytest.raises(NotImplementedError):
+    for change in (dict(async_health=True), dict(multithreading=True), dict(slam_mode="mono"),
+                   dict(optimizer="angularanalytic"), dict(tracker="other"),
+                   dict(pose_estimator="imu")):
+        with pytest.raises(NotImplementedError, match=next(iter(change))):
             TSLAM(rig, dataclasses.replace(TSLAMConfig(), **change), device="cpu")
+    # the keys of the long-run path, the matcher/epipolar front end and the
+    # other marginalization forms are accepted
+    for change in (dict(tracker="matcher"), dict(pose_graph=True), dict(global_map=True),
+                   dict(marg_f64=True), dict(sparsification=False), dict(mesh3d=True),
+                   dict(pose_estimator="epipolar")):
+        TSLAM(rig, dataclasses.replace(TSLAMConfig(), **change), device="cpu")
     with pytest.raises(NotImplementedError):
         runs["ts"].run([], profile=True)
 

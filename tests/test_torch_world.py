@@ -55,3 +55,36 @@ def test_ate_rmse_matches(worlds, rng):
     for scale in (False, True):
         assert tsyn.ate_rmse(est, wj.gt_t, with_scale=scale) == pytest.approx(
             jsyn.ate_rmse(est, wj.gt_t, with_scale=scale), rel=1e-12)
+
+
+@pytest.fixture(scope="module")
+def excursion_worlds():
+    """The loop-closure world: the excursion trajectory along a wider wall."""
+    kw = dict(seed=11, n_frames=5, width=320, height=240, n_points=420, imu_noise=True,
+              noise_px=1.0, trajectory="excursion", wall_x=(-5.0, 11.0))
+    return jsyn.make_world(**kw), tsyn.make_world(**kw, device="cpu")
+
+
+def test_excursion_ground_truth_and_imu_equal(excursion_worlds):
+    wj, wt = excursion_worlds
+    for name in ("gt_R", "gt_t", "gt_v", "points"):
+        np.testing.assert_array_equal(getattr(wt, name), getattr(wj, name), err_msg=name)
+    assert wt.points[:, 0].max() > 10.0  # the wall reaches out to wall_x[1]
+    for fj, ft in zip(wj.frames, wt.frames):
+        assert ft.ts == fj.ts
+        for name in ("acc", "gyr", "dt"):
+            np.testing.assert_array_equal(getattr(ft, name), getattr(fj, name))
+
+
+def test_excursion_images_agree(excursion_worlds):
+    """Same noise draws on both sides, so the noisy images agree as the clean ones do."""
+    wj, wt = excursion_worlds
+    for fj, ft in zip(wj.frames, wt.frames):
+        np.testing.assert_allclose(ft.images, fj.images, atol=0.05)
+
+
+def test_excursion_returns_to_the_start():
+    w = tsyn.make_world(seed=0, n_frames=40, width=64, height=48, n_points=30,
+                        trajectory="excursion", device="cpu")
+    x = w.gt_t[:, 0]
+    assert x.max() > 2.1 and abs(x[0]) < 1e-6 and x[-1] < 0.2 and np.argmax(x) in (19, 20, 21)
