@@ -4,7 +4,9 @@ the sources in this checkout, checks each against its plain PyTorch version
 at the main path's shapes, then drives the flagship stereo-VIO main path
 (``StereoSLAM(rig, cfg, imu_params).run``) at EuRoC shapes, the long-run
 path (global map, pose graph with loop closure, mesh) on a revisit world,
-and the matcher / epipolar front end, and checks each against ground truth.
+the matcher / epipolar front end, the monocular modes (``MonoSLAM``), the
+non-overlapping-FoV mode (``NoFovSLAM``) and the exotic camera models with
+the angular BA, and checks each against ground truth.
 
     python3 chip_smoke.py             # the whole check
     python3 chip_smoke.py --measure   # adds lk_track's cycles per phase, the
@@ -26,8 +28,13 @@ call shapes, and at ``levels=1`` in the matcher's polish call shape; the
 ``pose_graph``, ``mesh3d``) over an excursion that returns to its start, with
 its new stages timed; ``tracker: matcher`` and ``pose_estimator: epipolar``
 runs; the marginalization products of a window captured at a roll of the
-long run, evaluated on the card and on the CPU and compared.  No phase
-catches its own failure.
+long run, evaluated on the card and on the CPU and compared; the mono and
+monovio runs (configs/euroc_mono(vio), 130 frames of camera 0), then
+``lk_track`` at the mono frame track's real inputs; the nofov run
+(configs/nofov's shapes at 640x480, 60 frames, the 1.4x scale corruption),
+then ``lk_track`` at its widest warped camera-1 re-track; the exotic runs
+(sim_omni_mono, sim_ds_monovio, a fisheye stereo run with the angular BA,
+60 frames each).  No phase catches its own failure.
 
 Kernel times are device times: (a) the kernel's self time from
 ``torch.profiler``; (b) CUDA events around a replayed CUDA graph of 50
@@ -43,6 +50,7 @@ largest disagreement with the plain version, its times and its bound.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -140,9 +148,11 @@ def _host_us(fn, n=200):
     return dt / n * 1e6
 
 
-def _profile(fn, n=1):
+def _profile(fn, n=1, required=True):
     """Device activity of n calls of fn by torch.profiler: ({kernel name:
-    (count, self device us)}, wall seconds)."""
+    (count, self device us)}, wall seconds).  With `required` false a
+    profile without device time is reported and returned empty: the caller
+    keeps its CUDA-event times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -154,18 +164,30 @@ def _profile(fn, n=1):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     out = {}
-    for e in prof.key_averages():
+    events = prof.key_averages()
+    for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
             out[e.key] = (e.count, float(e.self_device_time_total))
-    _require(out, "torch.profiler recorded no device time")
+    msg = (f"torch.profiler recorded no device time ({len(events)} events: "
+           f"{sorted({str(e.device_type) for e in events})})")
+    _require(out or not required, msg)
+    if not out:
+        print(f"profiler: {msg}")
     return out, wall
 
 
 def _kernel_self_ms(table, name, calls):
-    """Self device ms per call of the kernels whose name contains `name`."""
+    """Self device ms per call of the kernels whose name contains `name`;
+    None for an empty table (the profiler recorded no device time)."""
+    if not table:
+        return None
     hit = [(c, us) for k, (c, us) in table.items() if name in k]
     _require(hit, f"profiler saw no kernel named {name}")
     return sum(us for _, us in hit) / calls / 1e3
+
+
+def _ms(x, digits=5):
+    return "not measured" if x is None else f"{x:.{digits}f} ms"
 
 
 # ----------------------------------------------------------------------
@@ -392,81 +414,99 @@ def phase_track_kernel(frames, device):
     """lk_track vs lk_track_ref and vs track(engine="levels") on the card,
     in the frame-track and the stereo-track call shapes and at levels=1 in
     the matcher's polish call shape; times of all three taken in turns."""
-    from sadvio_tpu_torch.frontend import klt
-    from sadvio_tpu_torch.ops import klt_kernel
-
     rows = []
     for shape in ("frame", "stereo", "polish"):
         pyr0, pyr1, uv0, init, valid0, warp, bwd = _track_inputs(frames, device, shape)
         levels = 1 if shape == "polish" else LEVELS
-        kw = dict(levels=levels, radius=RADIUS, iters=ITERS, iters_coarse=ITERS_COARSE,
-                  bwd_levels=bwd)
-        run_k = lambda **o: klt_kernel.lk_track(pyr0, pyr1, uv0, init, valid0, warp, **kw, **o)
-        run_l = lambda: klt.track(pyr0, pyr1, uv0, init, valid0, warp=warp, engine="levels", **kw)
-        run_r = lambda **o: klt_kernel.lk_track_ref(pyr0, pyr1, uv0, init, valid0, warp,
-                                                    **{**kw, **o})
-        out_k, out_l, out_r = run_k(), run_l(), run_r()
-        # a feature may differ in `valid` only where its forward-backward
-        # distance or its residual is within the float tolerance of the gate
-        tight = run_r(fb_thresh=FB_THRESH - UV_TOL_PX, max_err=MAX_ERR - ERR_TOL)[1]
-        loose = run_r(fb_thresh=FB_THRESH + UV_TOL_PX, max_err=MAX_ERR + ERR_TOL)[1]
-        torch.cuda.synchronize()
-        _require(_same_bits(out_k, run_k(margin=0)) and _same_bits(out_k, run_k(margin=9)),
-                 f"{shape}: lk_track depends on its window margin")
-        worst = {"uv": 0.0, "err": 0.0}
-        for name, (uv_o, v_o, e_o) in (("lk_track_ref", out_r), ("engine=levels", out_l)):
-            uv_k, v_k, e_k = out_k
-            _require(torch.equal(torch.isnan(uv_k), torch.isnan(uv_o))
-                     and torch.equal(torch.isnan(e_k), torch.isnan(e_o)),
-                     f"{shape}: NaN pattern differs from {name}")
-            for v in (v_k, v_o):
-                _require(bool((v | ~tight).all()) and bool((loose | ~v).all()),
-                         f"{shape}: valid differs from {name} away from a gate tie")
-            ties = int((v_k != v_o).sum())
-            _require(ties <= N_FEATURES // 100, f"{shape}: {ties} gate ties against {name}")
-            both = v_k & v_o
-            _require(int(both.sum()) > N_FEATURES // 8, f"{shape}: {int(both.sum())} valid")
-            d_uv = float((uv_k[both] - uv_o[both]).abs().max())
-            d_err = float((e_k[both] - e_o[both]).abs().max())
-            nan_rows = int(torch.isnan(uv_k).any(1).sum())
-            print(f"kernel lk_track: {shape} track vs {name}: valid in both {int(both.sum())} "
-                  f"of {N_FEATURES}, gate ties {ties}, NaN rows {nan_rows}, "
-                  f"max|duv|={d_uv:.3e} px max|derr|={d_err:.3e}")
-            _require(d_uv < UV_TOL_PX and d_err < ERR_TOL,
-                     f"{shape}: lk_track disagrees with {name}")
-            worst = {"uv": max(worst["uv"], d_uv), "err": max(worst["err"], d_err)}
-
-        # in turns: plain, levels, fused, fused, levels, plain
-        ms_r = [_loop_ms(run_r, n=3, warmup=1)]
-        ms_l = [_loop_ms(run_l)]
-        ms_k = [_graph_ms(run_k), _graph_ms(run_k)]
-        ms_l.append(_loop_ms(run_l))
-        ms_r.append(_loop_ms(run_r, n=3, warmup=1))
-        n_prof = 10
-        tab_k, _ = _profile(run_k, n=n_prof)
-        tab_l, _ = _profile(run_l, n=n_prof)
-        row = {"shape": shape, "max_abs_err_uv": worst["uv"], "max_abs_err_err": worst["err"],
-               "ms": float(np.mean(ms_k)),
-               "profiler_ms": _kernel_self_ms(tab_k, "lk_track_kernel", n_prof),
-               "python_loop_ms": _loop_ms(run_k), "host_us": _host_us(run_k),
-               "plain_ms": float(np.mean(ms_r)),
-               "levels_python_loop_ms": float(np.mean(ms_l)),
-               "levels_device_ms": sum(us for _, us in tab_l.values()) / n_prof / 1e3,
-               "levels_lk_iterate_device_ms": _kernel_self_ms(tab_l, "lk_iterate_kernel", n_prof),
-               "levels_kernels": sum(c for c, _ in tab_l.values()) / n_prof,
-               "levels_host_us": _host_us(run_l, n=20),
-               **bound_lk_track(pyr0, pyr1, uv0, init, valid0, warp, bwd, levels)}
-        rows.append(row)
-        print(f"kernel lk_track: {shape} track N={N_FEATURES} S={2 * RADIUS + 1} levels={levels} "
-              f"| fused: device {row['ms']:.5f} ms (graph of {GRAPH_LAUNCHES}), profiler self "
-              f"{row['profiler_ms']:.5f} ms, as Python launches it {row['python_loop_ms']:.4f} ms, "
-              f"host {row['host_us']:.1f} us/call | engine=levels: {row['levels_kernels']:.0f} "
-              f"kernels, device {row['levels_device_ms']:.4f} ms (profiler, all kernels; "
-              f"lk_iterate alone {row['levels_lk_iterate_device_ms']:.5f} ms), as Python launches "
-              f"it {row['levels_python_loop_ms']:.3f} ms, host {row['levels_host_us']:.0f} us/call "
-              f"| plain {row['plain_ms']:.2f} ms | bound {row['bound_ms']:.5f} ms by "
-              f"{row['bound_by']} ({row['bytes']} B, {row['flop']} FLOP at the cap)")
+        rows.append(_track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels))
     return rows
+
+
+def _track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels,
+                      profiler_required=True):
+    """One call shape of lk_track: held against lk_track_ref and the
+    five-launch engine="levels" track (NaN rows equal, `valid` equal away
+    from a gate tie, positions within UV_TOL_PX on features valid in both;
+    how many of those differ in any bit, and by how many float32 units in
+    the last place at most, is printed), then timed in turns.  Without
+    `profiler_required`, a profile that records no device time leaves the
+    profiler figures "not measured" (the CUDA-event times stay)."""
+    from sadvio_tpu_torch.frontend import klt
+    from sadvio_tpu_torch.ops import klt_kernel
+
+    N = uv0.shape[0]
+    kw = dict(levels=levels, radius=RADIUS, iters=ITERS, iters_coarse=ITERS_COARSE,
+              bwd_levels=bwd)
+    run_k = lambda **o: klt_kernel.lk_track(pyr0, pyr1, uv0, init, valid0, warp, **kw, **o)
+    run_l = lambda: klt.track(pyr0, pyr1, uv0, init, valid0, warp=warp, engine="levels", **kw)
+    run_r = lambda **o: klt_kernel.lk_track_ref(pyr0, pyr1, uv0, init, valid0, warp,
+                                                **{**kw, **o})
+    out_k, out_l, out_r = run_k(), run_l(), run_r()
+    # a feature may differ in `valid` only where its forward-backward
+    # distance or its residual is within the float tolerance of the gate
+    tight = run_r(fb_thresh=FB_THRESH - UV_TOL_PX, max_err=MAX_ERR - ERR_TOL)[1]
+    loose = run_r(fb_thresh=FB_THRESH + UV_TOL_PX, max_err=MAX_ERR + ERR_TOL)[1]
+    torch.cuda.synchronize()
+    _require(_same_bits(out_k, run_k(margin=0)) and _same_bits(out_k, run_k(margin=9)),
+             f"{shape}: lk_track depends on its window margin")
+    worst = {"uv": 0.0, "err": 0.0}
+    for name, (uv_o, v_o, e_o) in (("lk_track_ref", out_r), ("engine=levels", out_l)):
+        uv_k, v_k, e_k = out_k
+        _require(torch.equal(torch.isnan(uv_k), torch.isnan(uv_o))
+                 and torch.equal(torch.isnan(e_k), torch.isnan(e_o)),
+                 f"{shape}: NaN pattern differs from {name}")
+        for v in (v_k, v_o):
+            _require(bool((v | ~tight).all()) and bool((loose | ~v).all()),
+                     f"{shape}: valid differs from {name} away from a gate tie")
+        ties = int((v_k != v_o).sum())
+        _require(ties <= N // 100, f"{shape}: {ties} gate ties against {name}")
+        both = v_k & v_o
+        _require(int(both.sum()) > N // 8, f"{shape}: {int(both.sum())} valid")
+        d_uv = float((uv_k[both] - uv_o[both]).abs().max())
+        d_err = float((e_k[both] - e_o[both]).abs().max())
+        nan_rows = int(torch.isnan(uv_k).any(1).sum())
+        bits = lambda x: x[both].view(torch.int32).long()
+        n_off = int((bits(uv_k) != bits(uv_o)).any(1).sum())
+        ulps = int((bits(uv_k) - bits(uv_o)).abs().max()) if n_off else 0
+        print(f"kernel lk_track: {shape} track vs {name}: valid in both {int(both.sum())} "
+              f"of {N}, gate ties {ties}, NaN rows {nan_rows}, "
+              f"max|duv|={d_uv:.3e} px max|derr|={d_err:.3e}, positions differing in any bit "
+              f"{n_off} (at most {ulps} float32 units in the last place)")
+        _require(d_uv < UV_TOL_PX and d_err < ERR_TOL, f"{shape}: lk_track disagrees with {name}")
+        worst = {"uv": max(worst["uv"], d_uv), "err": max(worst["err"], d_err)}
+
+    # in turns: plain, levels, fused, fused, levels, plain
+    ms_r = [_loop_ms(run_r, n=3, warmup=1)]
+    ms_l = [_loop_ms(run_l)]
+    ms_k = [_graph_ms(run_k), _graph_ms(run_k)]
+    ms_l.append(_loop_ms(run_l))
+    ms_r.append(_loop_ms(run_r, n=3, warmup=1))
+    n_prof = 10
+    tab_k, _ = _profile(run_k, n=n_prof, required=profiler_required)
+    tab_l, _ = _profile(run_l, n=n_prof, required=profiler_required)
+    row = {"shape": shape, "max_abs_err_uv": worst["uv"], "max_abs_err_err": worst["err"],
+           "ms": float(np.mean(ms_k)),
+           "profiler_ms": _kernel_self_ms(tab_k, "lk_track_kernel", n_prof),
+           "python_loop_ms": _loop_ms(run_k), "host_us": _host_us(run_k),
+           "plain_ms": float(np.mean(ms_r)),
+           "levels_python_loop_ms": float(np.mean(ms_l)),
+           "levels_device_ms": (sum(us for _, us in tab_l.values()) / n_prof / 1e3
+                                if tab_l else None),
+           "levels_lk_iterate_device_ms": _kernel_self_ms(tab_l, "lk_iterate_kernel", n_prof),
+           "levels_kernels": sum(c for c, _ in tab_l.values()) / n_prof if tab_l else None,
+           "levels_host_us": _host_us(run_l, n=20),
+           **bound_lk_track(pyr0, pyr1, uv0, init, valid0, warp, bwd, levels)}
+    H, W = pyr0[0].shape
+    print(f"kernel lk_track: {shape} track {H}x{W} N={N} S={2 * RADIUS + 1} levels={levels} "
+          f"| fused: device {row['ms']:.5f} ms (graph of {GRAPH_LAUNCHES}), profiler self "
+          f"{_ms(row['profiler_ms'])}, as Python launches it {row['python_loop_ms']:.4f} ms, "
+          f"host {row['host_us']:.1f} us/call | engine=levels: {row['levels_kernels']} "
+          f"kernels, device {_ms(row['levels_device_ms'], 4)} (profiler, all kernels; "
+          f"lk_iterate alone {_ms(row['levels_lk_iterate_device_ms'])}), as Python launches "
+          f"it {row['levels_python_loop_ms']:.3f} ms, host {row['levels_host_us']:.0f} us/call "
+          f"| plain {row['plain_ms']:.2f} ms | bound {row['bound_ms']:.5f} ms by "
+          f"{row['bound_by']} ({row['bytes']} B, {row['flop']} FLOP at the cap)")
+    return row
 
 
 MAIN_CAPS = dict(K=11, L=512, P=48, pyr_levels=LEVELS, klt_radius=RADIUS)
@@ -474,10 +514,10 @@ STAGES = ("_pyramids", "_accumulate_imu", "_frontend", "_insert_kf", "_template_
           "_backend", "_marg_roll", "_run_vi_init")
 
 
-def _time_stages(slam):
+def _time_stages(slam, names=STAGES):
     """Wrap the pipeline's stages with a synchronised host clock; returns
     {stage: [ms, ...]} filled as the run goes."""
-    log = {name: [] for name in STAGES}
+    log = {name: [] for name in names}
 
     def wrap(name, fn):
         def timed(*a, **k):
@@ -489,7 +529,7 @@ def _time_stages(slam):
             return out
         return timed
 
-    for name in STAGES:
+    for name in names:
         setattr(slam, name, wrap(name, getattr(slam, name)))
     return log
 
@@ -916,6 +956,349 @@ def phase_marg_backends(long_rec, device):
     _require(not bad, f"backend-dependent marginalization products: {bad}")
 
 
+# ----------------------------------------------------------------------
+# the monocular, non-overlapping-FoV and exotic-camera modes
+# ----------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+MODE_CAPS = dict(L=512, P=48, pyr_levels=LEVELS, klt_radius=RADIUS)  # K from the preset
+MONO_ATE_TOL_M = 0.08  # the Sim3 gate of the JAX package's mono tests
+MONO_CAPTURE_CALL = 40  # the frame track (warped klt.track) whose inputs are replayed
+# the main path's keyframe parallax: at the preset's 4 deg every keyframe of
+# this world comes from the 1 s timer, 21 frames (1.05 s) apart, just over
+# the 1 s gap past which the IMU factor is dropped; VIInit then has too few
+# IMU pairs and the run degrades after it, in the JAX package as in the port
+MONOVIO_MAX_PARALLAX = 1.0
+NOFOV_FRAMES, NOFOV_SEED, NOFOV_POINTS = 60, 6, 400
+NOFOV_SIZE, NOFOV_F, NOFOV_LEVER, NOFOV_ROT = (640, 480), 420.0, 1.5, 1.5
+NOFOV_PERTURB_AFTER, NOFOV_PERTURB = 20, 1.4  # the JAX test's window-scale corruption
+NOFOV_TAIL = 10
+# the JAX test's keyframe parallax: at the preset's 3 deg a keyframe comes every ~15
+# frames and one scale estimate is all a 60-frame run makes
+NOFOV_MAX_PARALLAX = 0.5
+EXOTIC_FRAMES = 60
+EXOTIC_STEREO_ATE_TOL_M = 0.06  # tests/test_pipeline_stress.py's exotic-camera gate
+
+
+def preset_config(name, **kw):
+    """configs/<name>/config.yaml with the smoke capacities: K from its
+    max_kf_number, L=512, P=48, 4 levels, radius 5."""
+    import dataclasses
+
+    from sadvio_tpu_torch.pipeline.config import Capacities, load_slam_config
+
+    cfg = load_slam_config(os.path.join(REPO, "configs", name, "config.yaml"))
+    return dataclasses.replace(cfg, caps=Capacities(K=cfg.max_kf_number + 1, **MODE_CAPS), **kw)
+
+
+class _CaptureTrack:
+    """Keep the arguments of the n-th warped klt.track call while a run goes
+    (the pipeline modules call it through the module, so patching the
+    attribute is enough; the original is put back on exit).  n=0 keeps
+    none."""
+
+    def __init__(self, n):
+        self.n, self.count, self.args = n, 0, None
+
+    def __enter__(self):
+        from sadvio_tpu_torch.frontend import klt
+
+        self.klt, self.orig = klt, klt.track
+
+        def track(*a, **k):
+            if k.get("warp") is not None:
+                self.count += 1
+                if self.count == self.n:
+                    self.args = (a, dict(k))
+            return self.orig(*a, **k)
+
+        klt.track = track
+        return self
+
+    def __exit__(self, *exc):
+        self.klt.track = self.orig
+
+
+def _count_calls(slam, names):
+    """Count calls of the pipeline's methods: {name: calls}, filled as the
+    run goes."""
+    counts = {n: 0 for n in names}
+
+    def wrap(name, fn):
+        def counted(*a, **k):
+            counts[name] += 1
+            return fn(*a, **k)
+        return counted
+
+    for n in names:
+        setattr(slam, n, wrap(n, getattr(slam, n)))
+    return counts
+
+
+def _drive_mode(slam, frames, after_frame=None):
+    """Drive any pipeline over `frames`; launch counts set to 0 just before
+    the first frame and read just after the last.  `after_frame(i, slam)`
+    runs after frame i.  Returns the run's record."""
+    from sadvio_tpu_torch.ops import klt_kernel
+
+    klt_kernel.lk_iterate.launches = 0
+    klt_kernel.lk_track.launches = 0
+    klt_kernel.lk_track.launches_by_levels = {}
+    outs, ms, i0 = [], [], None
+    t_run = time.perf_counter()
+    for i, f in enumerate(frames):
+        t0 = time.perf_counter()
+        outs.append(slam.process_frame(f))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i0 is None and slam.initialized:
+            i0 = i
+        if after_frame is not None:
+            after_frame(i, slam)
+    rec = {"slam": slam, "frames": len(frames), "run_s": time.perf_counter() - t_run,
+           "frame_ms": np.asarray(ms), "outs": outs, "i0": i0,
+           "is_kf": np.asarray([bool(o["is_kf"]) for o in outs]),
+           "lk_track": klt_kernel.lk_track.launches, "lk_iterate": klt_kernel.lk_iterate.launches}
+    est = np.asarray([t for _, _, t in slam.traj])
+    _require(len(est) == len(frames), "one pose per frame expected")
+    _require(np.isfinite(est).all() and all(np.isfinite(R).all() for _, R, _ in slam.traj),
+             "non-finite pose")
+    rec["est"] = est
+    return rec
+
+
+def _mode_summary(name, rec, extra=""):
+    slam, ms, kf = rec["slam"], rec["frame_ms"], rec["is_kf"]
+    print(f"{name}: frames {rec['frames']} bootstrap frame {rec['i0']} keyframes "
+          f"{len(slam.kf_traj)} rolls {len(slam.archived_kf)} resets {slam.n_resets} median frame "
+          f"{np.median(ms):.2f} ms (tracking frames {np.median(ms[~kf]):.2f} ms, keyframes "
+          f"{np.median(ms[kf]):.1f} ms), run {rec['run_s']:.1f} s, launches "
+          f"lk_track={rec['lk_track']} lk_iterate={rec['lk_iterate']}{extra}")
+
+
+def _stage_summary(name, log):
+    for key, ms in log.items():
+        if ms:
+            print(f"{name}: stage {key}: calls {len(ms)} mean {np.mean(ms):.2f} ms median "
+                  f"{np.median(ms):.2f} ms max {np.max(ms):.2f} ms")
+
+
+def run_mono(world, frames, device, preset, vio, capture=0, **cfg_kw):
+    """MonoSLAM over camera 0 of `frames` with a preset's settings
+    (`cfg_kw` overrides keys); the bootstrap, the window BA and VIInit are
+    timed as the run goes.  Checks what every monocular run must hold; the
+    caller gates the accuracy.  VIInit moves the window into a gravity-aligned
+    metric gauge while the poses logged before it stay in the bootstrap's, so
+    each of the two segments is aligned on its own: ate_sim3 is the larger
+    Sim3 ATE of the two, ate_se3 and span_ratio are the metric segment's."""
+    from sadvio_tpu_torch.pipeline import synthetic
+    from sadvio_tpu_torch.pipeline.mono import MonoSLAM
+
+    slam = MonoSLAM(world.rig.subset([0]), preset_config(preset, **cfg_kw),
+                    imu_params=world.imu_params if vio else None, device=device)
+    stages = _time_stages(slam, ("_try_bootstrap", "_backend", "_run_vi_init"))
+    with _CaptureTrack(capture) as cap:
+        rec = _drive_mode(slam, [f._replace(images=f.images[:1]) for f in frames])
+    rec["capture"], rec["stages"] = cap.args, stages
+    i0, n = rec["i0"], rec["frames"]
+    _require(i0 is not None, f"{preset}: the bootstrap never fired")
+    iv = next((i for i, o in enumerate(rec["outs"]) if o.get("vi_initialized")), None)
+    rec["vi_frame"] = iv if vio else None
+    segs = [(i0, n)] if rec["vi_frame"] is None else [(i0, iv + 1), (iv + 1, n)]
+    est, gt = rec["est"], world.gt_t[:n]
+    rec["ate_segments"] = [synthetic.ate_rmse(est[a:b], gt[a:b], with_scale=True) for a, b in segs]
+    rec["ate_sim3"] = max(rec["ate_segments"])
+    a, b = segs[-1]
+    rec["ate_se3"] = synthetic.ate_rmse(est[a:b], gt[a:b])
+    rec["span_ratio"] = float(np.linalg.norm(est[b - 1] - est[a])
+                              / np.linalg.norm(gt[b - 1] - gt[a]))
+    _require(slam.n_resets == 0, f"{preset}: the run reset")
+    # one klt.track per frame after the first: the bootstrap's track until
+    # it fires, the frame track after it (no stereo track at a keyframe)
+    _require(rec["lk_track"] == rec["frames"] - 1 and rec["lk_iterate"] == 0,
+             f"{preset}: {rec['lk_track']} lk_track launches for {rec['frames'] - 1} tracks")
+    _require(slam.window.R.is_cuda and slam.window.lmk.is_cuda, "window state left the card")
+    return rec
+
+
+def phase_mono(world, frames, device, vio):
+    """Monocular VO ("euroc_mono") or VIO ("euroc_monovio") on camera 0 of
+    the main path's world: the bootstrap fires, Sim3 ATE after it < 0.08 m;
+    with the IMU, VIInit with scale fires and the metric span is within
+    0.7-1.4 of the truth's.  The inputs of one frame track of the mono run
+    are kept for the kernel check at that call shape."""
+    if vio:
+        preset, kw = "euroc_monovio", dict(max_movement_parallax=MONOVIO_MAX_PARALLAX)
+        rec = run_mono(world, frames, device, preset, vio, **kw)
+    else:
+        preset = "euroc_mono"
+        rec = run_mono(world, frames, device, preset, vio, capture=MONO_CAPTURE_CALL)
+    slam = rec["slam"]
+    _mode_summary(preset, rec, f" | Sim3 ATE {rec['ate_sim3'] * 1e3:.3f} mm (per gauge segment "
+                  f"{[round(x * 1e3, 3) for x in rec['ate_segments']]}), SE3 ATE "
+                  f"{rec['ate_se3'] * 1e3:.3f} mm and span ratio {rec['span_ratio']:.4f} "
+                  f"(metric segment), VIInit at frame {rec['vi_frame']}")
+    _stage_summary(preset, rec["stages"])
+    _require(rec["ate_sim3"] < MONO_ATE_TOL_M, f"{preset}: Sim3 ATE {rec['ate_sim3']:.4f} m")
+    if vio:
+        _require(slam.vi_initialized, "monovio: VIInit never fired")
+        _require(0.7 < rec["span_ratio"] < 1.4, f"monovio: span ratio {rec['span_ratio']:.3f}")
+    else:
+        _require(rec["capture"] is not None, "mono: the frame track to replay never came")
+    return rec
+
+
+def make_nofov_world(device, n_frames=NOFOV_FRAMES):
+    from sadvio_tpu_torch.pipeline import synthetic
+
+    world = synthetic.make_nofov_world(
+        seed=NOFOV_SEED, n_frames=n_frames, width=NOFOV_SIZE[0], height=NOFOV_SIZE[1],
+        n_points=NOFOV_POINTS, rot_scale=NOFOV_ROT, lever=NOFOV_LEVER, f=NOFOV_F, device=device)
+    frames = [f._replace(images=np.clip(f.images, 0, 255).astype(np.uint8)) for f in world.frames]
+    return world, frames
+
+
+def _rotation_deg(R):
+    return float(np.degrees(np.arccos(np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0))))
+
+
+def phase_nofov(device):
+    """Non-overlapping FoV ("configs/nofov": 640x480, f=420, K=11, L=256+256,
+    P=48, dense marginalization) on the scale-recovery world (lever 1.5 m,
+    rot_scale 1.5) with the 1.4x window-scale corruption after frame 20:
+    the gates of tests/test_nofov_pipeline.py's recovery test.  Every
+    camera-1 re-track is recorded with its rotation; the widest one is kept
+    for the kernel check at that call shape."""
+    from sadvio_tpu_torch.pipeline import synthetic
+    from sadvio_tpu_torch.pipeline.nofov_mode import NoFovSLAM
+
+    world, frames = make_nofov_world(device)
+    slam = NoFovSLAM(world.rig, preset_config("nofov", max_movement_parallax=NOFOV_MAX_PARALLAX),
+                     device=device)
+    calls = _count_calls(slam, ("_track_cam1",))
+    stages = _time_stages(slam, ("_try_bootstrap", "_estimate_scale_window", "_backend"))
+    refine = slam._track_cam1_refine
+    retracks = []
+
+    def recorded(pyr_a, pyr_b, uv_a, init, valid, R_1):
+        retracks.append((_rotation_deg(R_1.cpu().numpy()), (pyr_a, pyr_b, uv_a, init, valid, R_1)))
+        return refine(pyr_a, pyr_b, uv_a, init, valid, R_1)
+
+    slam._track_cam1_refine = recorded
+    perturbed = []
+
+    def perturb(i, s):
+        if not perturbed and s.scale_state["applied"] and i >= NOFOV_PERTURB_AFTER:
+            s._apply_scale_window(NOFOV_PERTURB)
+            perturbed.append(i)
+
+    rec = _drive_mode(slam, frames, after_frame=perturb)
+    i0, outs, L = rec["i0"], rec["outs"], slam.caps.L
+    _require(i0 is not None, "nofov: the bootstrap never fired")
+    est, gt = rec["est"][i0:], world.gt_t[i0: rec["frames"]]
+    shape_ate = synthetic.ate_rmse(est, gt, with_scale=True)
+    metric_ate = synthetic.ate_rmse(est, gt)
+    seg = lambda p: np.linalg.norm(np.diff(p[-NOFOV_TAIL:], axis=0), axis=-1).sum()
+    tail = float(seg(rec["est"]) / max(seg(world.gt_t[: rec["frames"]]), 1e-9))
+    n_cam1 = int(slam.window.lmk_mask[L // 2:].sum())
+    applied = [o["scale_applied"] for o in outs if "scale_applied" in o]
+    ratios = [round(o["scale_ratio"], 5) for o in outs if "scale_ratio" in o]
+    n_chain, n_re = calls["_track_cam1"], len(retracks)
+    angles = [a for a, _ in retracks] or [0.0]
+    _mode_summary("nofov", rec, f" = {rec['frames'] - 1} bootstrap/frame tracks + {n_chain} "
+                  f"chained camera-1 tracks + {n_re} warped re-tracks")
+    print(f"nofov: scale_applied {applied} (perturbed x{NOFOV_PERTURB} after frame "
+          f"{perturbed}), scale_ratio per keyframe {ratios}, estimates "
+          f"{slam.scale_state['n_est']}, final s {slam.scale_state['s']:.5f}, camera-1 landmarks "
+          f"{n_cam1}, tail segment scale {tail:.4f}, shape (Sim3) ATE {shape_ate * 1e3:.3f} mm, "
+          f"metric (SE3) ATE {metric_ate * 1e3:.3f} mm, re-track rotations min/median/max "
+          f"{min(angles):.2f}/{np.median(angles):.2f}/{max(angles):.2f} deg")
+    _stage_summary("nofov", stages)
+    _require(slam.initialized and slam.scale_state["applied"], "nofov: scale never applied")
+    _require(bool(perturbed), "nofov: the scale was not applied by the perturbation frame")
+    _require(slam.scale_state["n_est"] >= 2, "nofov: continuous estimation inactive")
+    _require(n_cam1 > 20, f"nofov: {n_cam1} camera-1 landmarks")
+    _require(0.75 < tail < 1.3, f"nofov: tail scale {tail:.3f} did not recover")
+    _require(slam.n_resets == 0, "nofov: the run reset")
+    _require(rec["lk_track"] == rec["frames"] - 1 + n_chain + n_re and rec["lk_iterate"] == 0,
+             f"nofov: {rec['lk_track']} lk_track launches for "
+             f"{rec['frames'] - 1 + n_chain + n_re} tracks")
+    _require(n_re > 0, "nofov: no warped re-track ran")
+    rec.update(retrack=max(retracks, key=lambda r: r[0]), n_chain=n_chain, n_retrack=n_re,
+               tail=tail, applied=applied, ratios=ratios, stages=stages,
+               shape_ate=shape_ate, metric_ate=metric_ate)
+    return rec
+
+
+def phase_exotic(device):
+    """The exotic camera models with the angular window BA at 752x480:
+    "sim_omni_mono" (omni, mono), "sim_ds_monovio" (double sphere, monovio)
+    and a fisheye stereo VO run with optimizer angular (as
+    tests/test_pipeline_stress.py's exotic test), each on its camera's
+    render of the main path's world, gated on its JAX counterpart's ATE."""
+    from sadvio_tpu_torch.pipeline import synthetic
+    from sadvio_tpu_torch.pipeline.config import Capacities, SLAMConfig
+    from sadvio_tpu_torch.pipeline.slam import StereoSLAM
+
+    recs = {}
+    for name, camera, preset, vio in (("sim_omni_mono", "omni", "sim_omni_mono", False),
+                                      ("sim_ds_monovio", "double_sphere", "sim_ds_monovio", True),
+                                      ("fisheye_bimono", "fisheye", None, False)):
+        world, frames = make_world(device, EXOTIC_FRAMES, camera=camera)
+        if preset is not None:
+            rec = run_mono(world, frames, device, preset, vio)
+            ok = rec["ate_sim3"] < MONO_ATE_TOL_M
+            extra = (f" | Sim3 ATE {rec['ate_sim3'] * 1e3:.3f} mm, SE3 ATE "
+                     f"{rec['ate_se3'] * 1e3:.3f} mm, VIInit at frame {rec['vi_frame']}")
+        else:
+            cfg = SLAMConfig(slam_mode="bimono", optimizer="angular", max_kf_number=10,
+                             min_lmk_number=40, max_movement_parallax=1.0,
+                             min_movement_parallax=0.02, caps=Capacities(**MAIN_CAPS))
+            slam = StereoSLAM(world.rig, cfg, device=device)
+            stages = _time_stages(slam, ("_backend",))
+            rec = _drive_mode(slam, frames)
+            rec["stages"] = stages
+            rec["ate"] = synthetic.ate_rmse(rec["est"], world.gt_t[: rec["frames"]])
+            ok = rec["ate"] < EXOTIC_STEREO_ATE_TOL_M
+            extra = f" | ATE {rec['ate'] * 1e3:.3f} mm"
+            _require(slam.n_resets == 0, f"{name}: the run reset")
+            _require(rec["lk_track"] == rec["frames"] - 1 + int(rec["is_kf"].sum())
+                     and rec["lk_iterate"] == 0, f"{name}: {rec['lk_track']} lk_track launches")
+        slam = rec["slam"]
+        _require(slam._ba_opts.angular, f"{name}: the angular BA is off")
+        _mode_summary(f"exotic {name} ({type(slam.rig.cam).__name__})", rec, extra)
+        _stage_summary(f"exotic {name}", rec["stages"])
+        _require(ok, f"{name}: ATE over its gate")
+        recs[name] = rec
+    return recs
+
+
+def phase_mono_kernel(mono):
+    """lk_track against lk_track_ref at the mono frame track (752x480, one
+    camera), on the inputs the mono run gave its 40th frame track."""
+    (pyr0, pyr1, uv0, init, valid0), kw = mono["capture"]
+    return _track_kernel_row("mono frame", pyr0, pyr1, uv0.contiguous(), init.contiguous(),
+                             valid0.contiguous(), kw["warp"].contiguous(), 1, LEVELS,
+                             profiler_required=False)
+
+
+def phase_nofov_kernel(nofov):
+    """lk_track against lk_track_ref at nofov's warped re-track (640x480,
+    camera-1 slots only): the widest camera-1 rotation of the run, with the
+    warp as the pipeline builds it."""
+    from sadvio_tpu_torch.pipeline.nofov_mode import rotation_warp
+
+    angle, (pyr_a, pyr_b, uv_a, init, valid, R_1) = nofov["retrack"]
+    warp = rotation_warp(nofov["slam"].rig.cam.camera(1), R_1, init)
+    print(f"kernel lk_track: nofov re-track input: camera-1 rotation {angle:.2f} deg, "
+          f"{int(valid.sum())} common camera-1 tracks")
+    row = _track_kernel_row("nofov re-track", pyr_a, pyr_b, uv_a.contiguous(), init.contiguous(),
+                            valid.contiguous(), warp.contiguous(), 1, LEVELS,
+                            profiler_required=False)
+    row["rotation_deg"] = angle
+    return row
+
+
 def phase_levels_path(world, frames, device, fused):
     """The earlier path: the first frames again with one lk_iterate launch
     per level, held against the fused run's positions."""
@@ -994,6 +1377,10 @@ def phase_measure(world, frames, device):
                       f"{np.mean(ms):.2f} ms median {np.median(ms):.2f} ms")
 
 
+SHAPE_KEYS = ("ms", "profiler_ms", "host_us", "plain_ms", "bound_ms", "bound_by", "max_abs_err_uv",
+              "max_abs_err_err")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1012,6 +1399,12 @@ def main():
     fronts = phase_frontends(world, frames, device, fused)
     long_rec = phase_long_run(device)
     phase_marg_backends(long_rec, device)
+    mono = phase_mono(world, frames, device, vio=False)
+    mode_rows = {"mono_frame": phase_mono_kernel(mono)}
+    monovio = phase_mono(world, frames, device, vio=True)
+    nofov = phase_nofov(device)
+    mode_rows["nofov_refine"] = phase_nofov_kernel(nofov)
+    exotic = phase_exotic(device)
     if measure:
         phase_stage_kernels(long_rec)
         phase_clocks(frames, device)
@@ -1040,14 +1433,21 @@ def main():
         "replaces": "sadvio_tpu/ops/klt_kernel.py:47",
         "launches": fused["lk_track"],
         "launches_per_frame": fused["lk_track"] / fused["frames"],
-        "max_abs_err": max(max(r["max_abs_err_uv"], r["max_abs_err_err"]) for r in tr_rows),
+        "max_abs_err": max(max(r["max_abs_err_uv"], r["max_abs_err_err"])
+                           for r in (*tr_rows, *mode_rows.values())),
         "ms": tr["ms"], "profiler_ms": tr["profiler_ms"], "host_us": tr["host_us"],
         "plain_ms": tr["plain_ms"], "bound_ms": tr["bound_ms"], "bound_by": tr["bound_by"],
         "library_ms": None,
         "launches_long_run": long_rec["lk_track"],
         "launches_matcher_run": fronts["matcher"]["lk_track_by_levels"],
-        "levels1": {k: polish[k] for k in ("ms", "profiler_ms", "plain_ms", "bound_ms",
-                                            "bound_by", "max_abs_err_uv", "max_abs_err_err")},
+        "levels1": {k: polish[k] for k in SHAPE_KEYS},
+        "launches_mono_run": mono["lk_track"], "launches_monovio_run": monovio["lk_track"],
+        "launches_nofov_run": {"total": nofov["lk_track"], "frame": nofov["frames"] - 1,
+                               "chained": nofov["n_chain"], "retrack": nofov["n_retrack"]},
+        "launches_exotic_runs": {k: r["lk_track"] for k, r in exotic.items()},
+        "mono_frame": {k: mode_rows["mono_frame"][k] for k in SHAPE_KEYS},
+        "nofov_refine": {k: mode_rows["nofov_refine"][k]
+                         for k in (*SHAPE_KEYS, "rotation_deg")},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

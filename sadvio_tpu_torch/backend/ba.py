@@ -1,7 +1,8 @@
 """Sliding-window visual-inertial bundle adjustment: batched Schur-LM.
 
-Port of the main-path subset of ``sadvio_tpu/backend/ba.py`` (no line
-rows, no angular or numeric variants).  Landmarks not retained by the
+Port of ``sadvio_tpu/backend/ba.py`` without the line rows, with its
+angular (bearing-vector) and numeric (central-difference) reprojection
+variants.  Landmarks not retained by the
 marginalization prior are eliminated with independent 3x3 blocks; the
 reduced dense system holds the K keyframe 15-dof states plus the P
 retained landmarks and is solved with a Jacobi-equilibrated Cholesky.
@@ -41,6 +42,12 @@ class BAOptions(Struct):
     jitter: float = 1e-5
     acc_walk: float = 3.0e-3
     gyr_walk: float = 2.0e-5
+    # bearing-vector residual instead of the pixel residual (fisheye and
+    # omni rigs); its sigma is then sigma_px / focal
+    angular: bool = False
+    # central-difference reprojection Jacobians instead of the hand chain
+    # rule: a correctness baseline, not a hot path
+    numeric: bool = False
 
 
 class BAProblem(NamedTuple):
@@ -67,9 +74,17 @@ def _reproj_terms(state: WindowState, obs: Observations, rig: Rig, opts: BAOptio
     J_pose (K,C,L,2,6), J_lmk (K,C,L,2,3), base mask m and Huber weights w."""
     outs = []
     for c in range(rig.C):
-        r, Jp, Jl, valid = factors.reprojection_residual(
-            rig.cam.camera(c), state.R[:, None], state.t[:, None], rig.R_f_s[c],
-            rig.t_f_s[c], state.lmk[None], obs.uv[:, c], opts.sigma_px)
+        cam = rig.cam.camera(c)
+        args = (state.R[:, None], state.t[:, None], rig.R_f_s[c], rig.t_f_s[c], state.lmk[None])
+        if opts.angular:
+            r, Jp, Jl, valid = factors.angular_residual_jac(
+                *args, cam.backproject(obs.uv[:, c]), opts.sigma_px / cam.focal)
+        elif opts.numeric:
+            r, Jp, Jl, valid = factors.reprojection_residual_numeric(
+                cam, *args, obs.uv[:, c], opts.sigma_px)
+        else:
+            r, Jp, Jl, valid = factors.reprojection_residual(cam, *args, obs.uv[:, c],
+                                                             opts.sigma_px)
         m = (obs.mask[:, c] & valid & state.lmk_mask[None, :]
              & state.kf_mask[:, None]).to(r.dtype)
         w = m * factors.huber_weight(torch.linalg.norm(r, dim=-1), opts.huber)

@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import torch
 
 from sadvio_tpu_torch.models.imu import Preintegration
-from sadvio_tpu_torch.utils.struct import Struct
+from sadvio_tpu_torch.utils.struct import Struct, tree_map
 
 LMK_INITIALIZED = 1
 LMK_IN_MAP = 2
@@ -84,6 +84,10 @@ class Rig(Struct):
     @property
     def C(self):
         return self.t_f_s.shape[0]
+
+    def subset(self, idx):
+        """The rig of cameras ``idx`` (an index list or a slice) alone."""
+        return tree_map(lambda x: x[idx] if x.ndim > 0 else x, self)
 
 
 @dataclass

@@ -1,6 +1,8 @@
 """Stereo VO ("bimono") / stereo VIO ("bimonovio") pipeline.
 
-Port of ``sadvio_tpu/pipeline/slam.py`` (``StereoSLAM``):
+Port of ``sadvio_tpu/pipeline/slam.py`` (``StereoSLAM``), the base class of
+the monocular and non-overlapping-FoV modes (``pipeline/mono.py``,
+``pipeline/nofov_mode.py``):
 
   frontend  : pyramids + KLT from the last keyframe (or BRIEF matching with
               a level-0 KLT polish) + PnP (or essential-matrix RANSAC)
@@ -31,7 +33,12 @@ IMU prediction from zero velocity drifts by v * dt over a keyframe
 interval; once that drift is ten times the motion since the keyframe, the
 PnP sanity gate rejects the correct pose and tracking collapses.
 
-Config keys for parts that are not ported yet raise NotImplementedError.
+Subclass hooks: ``_bootstrap`` (the first keyframe, before
+``initialized``), ``_insert_kf``, ``vio_init_kfs``, ``_vi_opt_scale`` (VIInit
+solves the scale too) and ``_last_pyr`` (the latest frame's pyramids).
+``optimizer: angular*`` switches the window BA to the bearing-vector
+residual.  Config keys for parts that are not ported yet raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -73,15 +80,15 @@ class TrackState(Struct):
                    has3d=torch.zeros(L, dtype=torch.bool, device=device))
 
 
-def _check_config(cfg: SLAMConfig):
-    """Refuse the config keys whose code paths are not ported yet."""
+def _check_config(cfg: SLAMConfig, modes):
+    """Refuse a slam_mode outside ``modes`` (the class's own) and the config
+    keys whose code paths are not ported yet."""
     todo = {
-        "slam_mode": cfg.slam_mode not in ("bimono", "bimonovio"),
+        "slam_mode": cfg.slam_mode not in modes,
         "async_health": cfg.async_health,
         "multithreading": cfg.multithreading,
         "tracker": cfg.tracker not in ("klt", "matcher"),
         "pose_estimator": not cfg.pose_estimator.lower().startswith(("pnp", "epipolar")),
-        "optimizer": cfg.optimizer.lower().startswith("angular"),
         "features": any(f.label.lower() != "pointxd" or f.detector.lower() in ("csv", "cvcsv")
                         for f in cfg.features),
     }
@@ -108,8 +115,10 @@ def _odometry_edges(poses, covs):
 class StereoSLAM:
     """Stereo VO / stereo VIO pipeline on one device (None: the CUDA card)."""
 
+    MODES = ("bimono", "bimonovio")  # the slam_mode values this class runs
+
     def __init__(self, rig: Rig, config: SLAMConfig, imu_params=None, seed=0, device=None):
-        _check_config(config)
+        _check_config(config, self.MODES)
         self.device = entry_device(device)
         self.klt_engine = "fused"  # klt.track engine: "fused" | "levels"
         self.rig = rig.to(self.device)
@@ -121,10 +130,14 @@ class StereoSLAM:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self._pre_id = imu_mod.Preintegration.identity(device=self.device)
+        # optimizer "angular*": the bearing-vector residual (fisheye, omni)
         self._ba_opts = ba.BAOptions(iters=config.ba_iterations, sigma_px=1.0,
                                      acc_walk=self.imu_params.acc_walk,
-                                     gyr_walk=self.imu_params.gyr_walk)
+                                     gyr_walk=self.imu_params.gyr_walk,
+                                     angular=config.optimizer.lower().startswith("angular"))
         self.vio_init_kfs = min(10, self.caps.K - 1)  # 10-KF vision-only bootstrap
+        self._vi_opt_scale = False  # VIInit solves the scale too (monocular)
+        self._last_pyr = None  # pyramids of the latest frame, for subclasses
         self.n_resets = 0
         self.traj = []  # (ts, R, t) at frame rate, host numpy
         self.kf_traj = []
@@ -294,8 +307,8 @@ class StereoSLAM:
                 t_new = torch.where(use, t_e, t_new)
                 P_frame = torch.where(use, P_post, P_frame)
 
-        tracks = tracks.replace(uv=torch.stack([uv1, tracks.uv[1]]),
-                                valid=torch.stack([ok, tracks.valid[1]]))
+        tracks = tracks.replace(uv=torch.cat([uv1[None], tracks.uv[1:]]),
+                                valid=torch.cat([ok[None], tracks.valid[1:]]))
         zero3 = torch.zeros(3, device=dev)
         r0 = cameras.bearing_world(cam0, R_kf, zero3, Rfs0, tfs0, tracks.uv_kf[0])
         r1 = cameras.bearing_world(cam0, R_new, zero3, Rfs0, tfs0, uv1)
@@ -309,6 +322,62 @@ class StereoSLAM:
             R_new.reshape(-1), t_new, v_pred, P_frame.reshape(-1)])
         dR, dt_ = geo.pose_compose(*geo.pose_inverse(R_cur, t_cur), R_new, t_new)
         return tracks, R_new, t_new, health, dR, dt_
+
+    def _detect_into_slots(self, img0, tracks: TrackState, window: WindowState,
+                           obs: Observations, R_kf, t_kf, slot_limit: int):
+        """Camera 0's half of a keyframe insertion: detect in the free image
+        area, resurrect dead in-map landmarks, and give each fresh detection
+        a free landmark slot below ``slot_limit``.
+
+        Returns (uv_det, v_det, take, slot_of_det, new_uv0, new_v0, window,
+        obs): the detections, which of them claimed a slot and which slot,
+        camera 0's slot positions and validity, the window with the
+        resurrection flags and the observations with the claimed slots'
+        stale rows cleared."""
+        dev = self.device
+        L = self.caps.L
+        ar_L = torch.arange(L, device=dev)
+        # 1. detect in free slots with the occupancy mask
+        uv_det, _, v_det = detect.detect_features(
+            img0, existing_uv=tracks.uv[0], existing_valid=tracks.valid[0],
+            gh=8, gw=10, k_per_cell=max(1, self.cfg.features[0].n_per_cell))
+        M = uv_det.shape[0]
+        # 1b. resurrection: dead in-map landmarks re-associated to the
+        # mutual-nearest fresh detection within 5 px of their projection
+        dead = window.lmk_mask & ~tracks.valid[0]
+        uv_prj, vis_p = cameras.project_world(self.rig.cam.camera(0), R_kf, t_kf,
+                                              self.rig.R_f_s[0], self.rig.t_f_s[0], window.lmk)
+        d2 = ((uv_prj[:, None] - uv_det[None, :]) ** 2).sum(-1)
+        gate = (dead & vis_p)[:, None] & v_det[None, :] & (d2 < 25.0)
+        d2g = torch.where(gate, d2, torch.full_like(d2, float("inf")))
+        bestd = torch.argmin(d2g, 1)
+        bestl = torch.argmin(d2g, 0)
+        hit = (d2g.amin(1) < float("inf")) & (bestl[bestd] == ar_L)
+        uv0_base = torch.where(hit[:, None], uv_det[bestd], tracks.uv[0])
+        v0_base = tracks.valid[0] | hit
+        consumed = torch.zeros(M + 1, dtype=torch.bool, device=dev).scatter(
+            0, torch.where(hit, bestd, M), hit)[:M]
+        v_det = v_det & ~consumed
+        window = window.replace(lmk_flags=torch.where(
+            hit, window.lmk_flags | LMK_RESURRECTED, window.lmk_flags))
+
+        # assign detection d -> the (rank of d)-th free slot
+        free = ~(v0_base | window.lmk_mask) & (ar_L < slot_limit)
+        det_rank = torch.cumsum(v_det.long(), 0) - 1
+        n_free = free.sum()
+        order = torch.argsort((~free).to(torch.uint8), stable=True)
+        free_slots = torch.where(ar_L < n_free, order, L - 1)
+        take = v_det & (det_rank < n_free)
+        slot_of_det = torch.where(take, free_slots[torch.clamp(det_rank, 0, L - 1)], L)
+        pad = lambda x, fill: torch.cat(
+            [x, torch.full((1, *x.shape[1:]), fill, dtype=x.dtype, device=dev)])
+        new_uv0 = pad(uv0_base, 0.0).index_put((slot_of_det,), uv_det)[:L]
+        new_v0 = pad(v0_base, False).index_put((slot_of_det,), torch.ones_like(v_det))[:L]
+        # a claimed slot is a new landmark: clear its stale observation rows
+        claimed = torch.zeros(L + 1, dtype=torch.bool, device=dev).index_put(
+            (slot_of_det,), take)[:L]
+        obs = obs.replace(mask=obs.mask & ~claimed[None, None, :])
+        return uv_det, v_det, take, slot_of_det, new_uv0, new_v0, window, obs
 
     def _insert_kf(self, pyr_new, tracks: TrackState, window: WindowState, obs: Observations,
                    imu_chain: ImuChain, pre_cur, R_kf, t_kf, v_kf, ts: float, slot: int,
@@ -326,47 +395,8 @@ class StereoSLAM:
         Rfs, tfs = self.rig.R_f_s, self.rig.t_f_s
         L = self.caps.L
         img0 = pyr_new[0][0]
-        ar_L = torch.arange(L, device=dev)
-
-        # 1. detect in free slots with the occupancy mask
-        uv_det, _, v_det = detect.detect_features(
-            img0, existing_uv=tracks.uv[0], existing_valid=tracks.valid[0],
-            gh=8, gw=10, k_per_cell=max(1, self.cfg.features[0].n_per_cell))
-        M = uv_det.shape[0]
-        # 1b. resurrection: dead in-map landmarks re-associated to the
-        # mutual-nearest fresh detection within 5 px of their projection
-        dead = window.lmk_mask & ~tracks.valid[0]
-        uv_prj, vis_p = cameras.project_world(cam0, R_kf, t_kf, Rfs[0], tfs[0], window.lmk)
-        d2 = ((uv_prj[:, None] - uv_det[None, :]) ** 2).sum(-1)
-        gate = (dead & vis_p)[:, None] & v_det[None, :] & (d2 < 25.0)
-        d2g = torch.where(gate, d2, torch.full_like(d2, float("inf")))
-        bestd = torch.argmin(d2g, 1)
-        bestl = torch.argmin(d2g, 0)
-        hit = (d2g.amin(1) < float("inf")) & (bestl[bestd] == ar_L)
-        uv0_base = torch.where(hit[:, None], uv_det[bestd], tracks.uv[0])
-        v0_base = tracks.valid[0] | hit
-        consumed = torch.zeros(M + 1, dtype=torch.bool, device=dev).scatter(
-            0, torch.where(hit, bestd, M), hit)[:M]
-        v_det = v_det & ~consumed
-        window = window.replace(lmk_flags=torch.where(
-            hit, window.lmk_flags | LMK_RESURRECTED, window.lmk_flags))
-
-        # assign detection d -> the (rank of d)-th free slot
-        free = ~(v0_base | window.lmk_mask)
-        det_rank = torch.cumsum(v_det.long(), 0) - 1
-        n_free = free.sum()
-        order = torch.argsort((~free).to(torch.uint8), stable=True)
-        free_slots = torch.where(ar_L < n_free, order, L - 1)
-        take = v_det & (det_rank < n_free)
-        slot_of_det = torch.where(take, free_slots[torch.clamp(det_rank, 0, L - 1)], L)
-        pad = lambda x, fill: torch.cat(
-            [x, torch.full((1, *x.shape[1:]), fill, dtype=x.dtype, device=dev)])
-        new_uv0 = pad(uv0_base, 0.0).index_put((slot_of_det,), uv_det)[:L]
-        new_v0 = pad(v0_base, False).index_put((slot_of_det,), torch.ones_like(v_det))[:L]
-        # a claimed slot is a new landmark: clear its stale observation rows
-        claimed = torch.zeros(L + 1, dtype=torch.bool, device=dev).index_put(
-            (slot_of_det,), take)[:L]
-        obs = obs.replace(mask=obs.mask & ~claimed[None, None, :])
+        uv_det, v_det, take, slot_of_det, new_uv0, new_v0, window, obs = \
+            self._detect_into_slots(img0, tracks, window, obs, R_kf, t_kf, L)
 
         # 1c. long-range resurrection from the descriptor global map: fresh
         # detections that match an archived landmark by projection + BRIEF
@@ -529,57 +559,65 @@ class StereoSLAM:
         self._cov_h = health_h[19:55].reshape(6, 6).copy()
         self.traj.append((ts, health_h[4:13].reshape(3, 3).copy(), health_h[13:16].copy()))
 
+    def _bootstrap(self, frame, pyr_new, out: dict) -> dict:
+        """The first keyframe (after a reset too): a stereo keyframe at the
+        gravity-aligned origin, or at the relocalized pose.  Subclasses
+        replace it with their own bootstrap."""
+        dev = self.device
+        R0 = self._gravity_align_init(frame) if self.vio else torch.eye(3, device=dev)
+        t0 = torch.zeros(3, device=dev)
+        # relocalization after a tracking failure: reset() keeps the
+        # global map and the last pose estimate; if enough archived
+        # landmarks re-associate around that pose, the bootstrap
+        # keyframe continues the original gauge instead of re-zeroing
+        if self.global_map_state is not None and self.n_resets > 0:
+            rl = self._try_relocalize(pyr_new[0][0])
+            if rl is not None:
+                R0, t0 = rl
+                out["relocalized"] = True
+        self.R_cur, self.t_cur = R0, t0
+        ins = self._insert_kf(
+            pyr_new, self.tracks, self.window, self.obs, self.imu, self.pre_cur,
+            R0, t0, torch.zeros(3, device=dev), float(frame.ts), 0,
+            gm=self.global_map_state, lmk_desc=self.lmk_desc)
+        self.tracks, self.window, self.obs, self.imu = ins[:4]
+        R0_h, t0_h = R0.cpu().numpy(), t0.cpu().numpy()
+        if self.global_map_state is not None:
+            self.lmk_desc, gm_counts, gm_pack = ins[4:]
+            counts_h = gm_counts.cpu().numpy()
+            out["gm_resurrected"] = int(counts_h[0])
+            # the relocalized bootstrap keyframe was just re-associated
+            # against the archive around the kept pose: emit the loop
+            # edge to the archived anchor now
+            if (out.get("relocalized") and self.cfg.pose_graph and self.archived_kf
+                    and int(counts_h[1]) >= self.cfg.lc_min_hits):
+                lc = self._try_loop_closure(gm_pack, frame.ts, R0_h, t0_h)
+                if lc is not None:
+                    out["loop_closure"] = lc
+        self.n_kf = 1
+        self.pre_cur = self._pre_id
+        self._imu_n = 0
+        self.kf_pyr = pyr_new
+        self.kf_tmpl = self._template_cache(pyr_new, self.tracks.uv_kf[0])
+        self.initialized = True
+        self.kf_ts.append(frame.ts)
+        self.kf_cov.append(np.zeros((6, 6)))
+        self.kf_traj.append((frame.ts, R0_h, t0_h))
+        self.traj.append((frame.ts, R0_h, t0_h))
+        out["is_kf"] = True
+        return out
+
     def process_frame(self, frame) -> dict:
-        """One stereo frame (+ the IMU samples since the previous frame)."""
+        """One frame of the rig (+ the IMU samples since the previous frame)."""
         dev = self.device
         if self.vio:
             self._accumulate_imu(frame)
         images = torch.as_tensor(np.array(frame.images), device=dev)
         pyr_new = self._pyramids(images)
         out = {"ts": frame.ts, "is_kf": False, "ok": True}
+        self._last_pyr = pyr_new
         if not self.initialized:
-            R0 = self._gravity_align_init(frame) if self.vio else torch.eye(3, device=dev)
-            t0 = torch.zeros(3, device=dev)
-            # relocalization after a tracking failure: reset() keeps the
-            # global map and the last pose estimate; if enough archived
-            # landmarks re-associate around that pose, the bootstrap
-            # keyframe continues the original gauge instead of re-zeroing
-            if self.global_map_state is not None and self.n_resets > 0:
-                rl = self._try_relocalize(pyr_new[0][0])
-                if rl is not None:
-                    R0, t0 = rl
-                    out["relocalized"] = True
-            self.R_cur, self.t_cur = R0, t0
-            ins = self._insert_kf(
-                pyr_new, self.tracks, self.window, self.obs, self.imu, self.pre_cur,
-                R0, t0, torch.zeros(3, device=dev), float(frame.ts), 0,
-                gm=self.global_map_state, lmk_desc=self.lmk_desc)
-            self.tracks, self.window, self.obs, self.imu = ins[:4]
-            R0_h, t0_h = R0.cpu().numpy(), t0.cpu().numpy()
-            if self.global_map_state is not None:
-                self.lmk_desc, gm_counts, gm_pack = ins[4:]
-                counts_h = gm_counts.cpu().numpy()
-                out["gm_resurrected"] = int(counts_h[0])
-                # the relocalized bootstrap keyframe was just re-associated
-                # against the archive around the kept pose: emit the loop
-                # edge to the archived anchor now
-                if (out.get("relocalized") and self.cfg.pose_graph and self.archived_kf
-                        and int(counts_h[1]) >= self.cfg.lc_min_hits):
-                    lc = self._try_loop_closure(gm_pack, frame.ts, R0_h, t0_h)
-                    if lc is not None:
-                        out["loop_closure"] = lc
-            self.n_kf = 1
-            self.pre_cur = self._pre_id
-            self._imu_n = 0
-            self.kf_pyr = pyr_new
-            self.kf_tmpl = self._template_cache(pyr_new, self.tracks.uv_kf[0])
-            self.initialized = True
-            self.kf_ts.append(frame.ts)
-            self.kf_cov.append(np.zeros((6, 6)))
-            self.kf_traj.append((frame.ts, R0_h, t0_h))
-            self.traj.append((frame.ts, R0_h, t0_h))
-            out["is_kf"] = True
-            return out
+            return self._bootstrap(frame, pyr_new, out)
 
         R_pred, t_pred, v_pred = self._predict_pose(frame)
         self.tracks, R_new, t_new, health, dR_cv, dt_cv = self._frontend(
@@ -711,12 +749,13 @@ class StereoSLAM:
         return out
 
     def _run_vi_init(self):
-        """VI bootstrap: gravity/velocity/shared-bias solve over the window,
-        then rotate the map gravity-down and run a full VI window BA.  A
+        """VI bootstrap: gravity/velocity/shared-bias (and, with
+        ``_vi_opt_scale``, scale) solve over the window, then rotate and
+        rescale the map gravity-down and run a full VI window BA.  A
         non-converged solve or |ba| > 1 m/s^2 is rejected and retried at
         the next keyframe."""
         res = viinit.vi_init(self.window.R, self.window.t, self.window.kf_mask, self.imu,
-                             optimize_scale=False, iters=20)
+                             optimize_scale=self._vi_opt_scale, iters=20)
         ok_h = torch.cat([res["converged"].float()[None], res["ba"]]).cpu().numpy()
         if not ok_h[0] > 0.5 or np.linalg.norm(ok_h[1:4]) > 1.0:
             return

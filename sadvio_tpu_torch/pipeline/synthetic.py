@@ -1,8 +1,8 @@
 """Synthetic EuRoC-like world: rendered stereo stream + IMU + ground truth.
 
-Port of the pinhole, point-feature part of
-``sadvio_tpu/pipeline/synthetic.py`` (no line segments, no exposure jitter
-or occluder) with both trajectories.  The scene is a
+Port of the point-feature part of ``sadvio_tpu/pipeline/synthetic.py``
+(no line segments, no exposure jitter or occluder) with both trajectories,
+the four camera models and the non-overlapping-FoV world.  The scene is a
 wall of Gaussian intensity blobs rendered with torch on the caller's
 device; IMU samples come from the analytic trajectory by high-rate finite
 differences in float64 on the host.  With the same arguments it draws the
@@ -18,6 +18,7 @@ import torch
 
 from sadvio_tpu_torch.data.window import Rig
 from sadvio_tpu_torch.models import cameras, imu as imu_mod
+from sadvio_tpu_torch.utils import geometry as geo
 from sadvio_tpu_torch.utils.struct import entry_device
 
 
@@ -39,31 +40,49 @@ class SyntheticWorld(NamedTuple):
     points: np.ndarray  # (N,3)
 
 
+# per-model parameters of the synthetic rigs, beside fx = fy, cx, cy
+_EXOTIC = {
+    "fisheye": (240.0, dict(k1=0.02, k2=-0.005, k3=0.0, k4=0.0)),
+    "double_sphere": (230.0, dict(alpha=0.55, xi=-0.2)),
+    "omni": (360.0, dict(xi=0.8, k1=-0.01, k2=0.002, p1=0.0, p2=0.0)),
+}
+
+
 def make_rig(width=320, height=240, baseline=0.11, f=200.0, camera="pinhole", device=None):
-    """Stereo pinhole rig on ``device`` (None: the CUDA card)."""
-    if camera != "pinhole":
-        raise NotImplementedError(f"camera model {camera!r} is not ported yet")
+    """Stereo rig on ``device`` (None: the CUDA card).  ``camera``: "pinhole"
+    (focal ``f``), "fisheye", "double_sphere" or "omni" (their own focal
+    lengths and distortion, fields of view like the pinhole rig's)."""
     device = entry_device(device)
     C = 2
     full = lambda x: torch.full((C,), float(x), dtype=torch.float32, device=device)
-    model = cameras.Pinhole(fx=full(f), fy=full(f), cx=full(width / 2.0),
-                            cy=full(height / 2.0), width=width, height=height)
+    f, extra = (f, {}) if camera == "pinhole" else _EXOTIC[camera]
+    model = cameras.MODELS[camera](
+        fx=full(f), fy=full(f), cx=full(width / 2.0), cy=full(height / 2.0),
+        **{k: full(v) for k, v in extra.items()}, width=width, height=height)
     R_f_s = torch.eye(3, device=device).expand(C, 3, 3).clone()
     t_f_s = torch.tensor([[0.0, 0.0, 0.0], [baseline, 0.0, 0.0]], dtype=torch.float32,
                          device=device)
     return Rig(cam=model, R_f_s=R_f_s, t_f_s=t_f_s)
 
 
-def render_view(cam_f, cam_c, R_w_f, t_w_f, R_f_s, t_f_s, pts, intens, width: int, height: int):
+def render_view(cam_f, cam_c, R_w_f, t_w_f, R_f_s, t_f_s, pts, intens, width: int, height: int,
+                model=None):
     """Splat scene points into one image (H,W): each point is a sharp core
-    plus a soft halo, so coarse pyramid levels keep signal."""
+    plus a soft halo, so coarse pyramid levels keep signal.  ``model``:
+    one camera's model, whose projection places the splat centres (the
+    exotic-camera worlds); otherwise the inline pinhole formula does."""
     R_s_f = R_f_s.T
     p_f = (pts - t_w_f) @ R_w_f
     p_c = p_f @ R_f_s + R_s_f @ (-t_f_s)
     z = p_c[:, 2]
-    u = cam_f * p_c[:, 0] / torch.clamp(z, min=0.1) + cam_c[0]
-    v = cam_f * p_c[:, 1] / torch.clamp(z, min=0.1) + cam_c[1]
-    vis = (z > 0.3) & (u > -12) & (u < width + 12) & (v > -12) & (v < height + 12)
+    if model is not None:
+        uv_m, vis = model.project(p_c)
+        u, v = uv_m[:, 0], uv_m[:, 1]
+    else:
+        u = cam_f * p_c[:, 0] / torch.clamp(z, min=0.1) + cam_c[0]
+        v = cam_f * p_c[:, 1] / torch.clamp(z, min=0.1) + cam_c[1]
+        vis = torch.ones_like(z, dtype=torch.bool)
+    vis = vis & (z > 0.3) & (u > -12) & (u < width + 12) & (v > -12) & (v < height + 12)
     w = torch.where(vis, intens, torch.zeros_like(intens))
     xs = torch.arange(width, dtype=torch.float32, device=pts.device)
     ys = torch.arange(height, dtype=torch.float32, device=pts.device)
@@ -103,10 +122,11 @@ def _rot(yaw, pitch):
 
 
 def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=240,
-               n_points=240, noise_px=0.0, imu_noise=True, rot_scale=1.0, trajectory="default",
-               wall_x=(-5.0, 5.0), device=None) -> SyntheticWorld:
-    """Blob-wall world seen by a stereo pinhole rig.  ``trajectory``:
-    "default" or "excursion"; ``wall_x``: horizontal extent of the wall.
+               n_points=240, noise_px=0.0, imu_noise=True, rot_scale=1.0, camera="pinhole",
+               trajectory="default", wall_x=(-5.0, 5.0), device=None) -> SyntheticWorld:
+    """Blob-wall world seen by a stereo rig of ``camera`` model (see
+    ``make_rig``).  ``trajectory``: "default" or "excursion"; ``wall_x``:
+    horizontal extent of the wall.
 
     Images are rendered on ``device`` (None: the CUDA card) and returned as
     numpy arrays."""
@@ -114,7 +134,7 @@ def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=
 
     device = entry_device(device)
     rng = np.random.default_rng(seed)
-    rig = make_rig(width, height, device=device)
+    rig = make_rig(width, height, camera=camera, device=device)
     params = imu_mod.ImuParams.euroc()
     g = np.array([0.0, 0.0, -imu_mod.GRAVITY])
 
@@ -148,6 +168,7 @@ def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=
     pts_t = torch.as_tensor(pts, device=device)
     intens_t = torch.as_tensor(intens, device=device)
     fx, cx, cy = rig.cam.fx.tolist(), rig.cam.cx.tolist(), rig.cam.cy.tolist()
+    models = [None if camera == "pinhole" else rig.cam.camera(c) for c in range(2)]
     frames, gt_R, gt_t, gt_v = [], [], [], []
     for k in range(n_frames):
         i0 = k * n_sub
@@ -158,7 +179,7 @@ def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=
         R_kt = torch.as_tensor(R_k, dtype=torch.float32, device=device)
         t_kt = torch.as_tensor(t_k, dtype=torch.float32, device=device)
         imgs = [render_view(fx[c], (cx[c], cy[c]), R_kt, t_kt, rig.R_f_s[c], rig.t_f_s[c],
-                            pts_t, intens_t, width, height).cpu().numpy()
+                            pts_t, intens_t, width, height, model=models[c]).cpu().numpy()
                 for c in range(2)]
         if noise_px > 0:
             imgs = [im + rng.standard_normal(im.shape).astype(np.float32) * noise_px
@@ -184,6 +205,71 @@ def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=
                           gt_R=np.stack(gt_R).astype(np.float32),
                           gt_t=np.stack(gt_t).astype(np.float32),
                           gt_v=np.stack(gt_v).astype(np.float32), points=pts)
+
+
+def make_nofov_rig(width=320, height=240, lever=0.4, f=200.0, device=None):
+    """Two pinhole cameras looking opposite ways (nofov mode), on ``device``
+    (None: the CUDA card): camera 0 looks +z from the body origin, camera 1
+    looks -z from an x-offset lever."""
+    device = entry_device(device)
+    C = 2
+    full = lambda x: torch.full((C,), float(x), dtype=torch.float32, device=device)
+    model = cameras.Pinhole(fx=full(f), fy=full(f), cx=full(width / 2.0),
+                            cy=full(height / 2.0), width=width, height=height)
+    R1 = geo.so3_exp(torch.tensor([0.0, np.pi, 0.0], dtype=torch.float32, device=device))
+    R_f_s = torch.stack([torch.eye(3, device=device), R1])
+    t_f_s = torch.tensor([[0.0, 0.0, 0.0], [lever, 0.0, 0.0]], dtype=torch.float32,
+                         device=device)
+    return Rig(cam=model, R_f_s=R_f_s, t_f_s=t_f_s)
+
+
+def make_nofov_world(seed=0, n_frames=60, fps=20.0, width=320, height=240, n_points=240,
+                     rot_scale=1.0, lever=0.4, f=200.0, device=None) -> SyntheticWorld:
+    """Two blob walls (front z~[4,9], back z~[-9,-4]) seen by a nofov rig of
+    focal length ``f``, rendered on ``device`` (None: the CUDA card); no
+    IMU.  ``rot_scale`` scales the rotational excitation and ``lever``
+    camera 1's mounting offset: scale from rigidity needs the lever-arm
+    displacement |(R-I) t_s1| well above the ray noise."""
+    device = entry_device(device)
+    rng = np.random.default_rng(seed)
+    rig = make_nofov_rig(width, height, lever=lever, f=f, device=device)
+
+    def wall(zlo, zhi, n):
+        gx = int(np.ceil(np.sqrt(n * 10.0 / 7.0)))
+        gy = int(np.ceil(n / gx))
+        xs = np.linspace(-5, 5, gx)
+        ys = np.linspace(-3.5, 3.5, gy)
+        gxx, gyy = np.meshgrid(xs, ys)
+        cell = np.array([xs[1] - xs[0], ys[1] - ys[0]])
+        p2 = np.stack([gxx.reshape(-1), gyy.reshape(-1)], -1)[:n]
+        p2 = p2 + rng.uniform(-0.25, 0.25, p2.shape) * cell
+        ii, jj = np.meshgrid(np.arange(gx), np.arange(gy))
+        zf = 0.5 * (zlo + zhi) + 0.3 * (zhi - zlo) * (np.sin(0.8 * ii) * np.cos(0.9 * jj))
+        z = zf.reshape(-1)[:n] + rng.uniform(-0.2, 0.2, len(p2))
+        return np.concatenate([p2, z[:, None]], -1).astype(np.float32)
+
+    pts = np.concatenate([wall(4.0, 9.0, n_points), wall(-9.0, -4.0, n_points)])
+    intens = rng.uniform(80, 220, len(pts)).astype(np.float32)
+    dt_f = 1.0 / fps
+    p_d, yaw_d, pitch_d = _trajectory(np.arange(n_frames) * dt_f, rot_scale)
+    R_d = np.stack([_rot(y, pp) for y, pp in zip(yaw_d, pitch_d)])
+    v_d = np.gradient(p_d, dt_f, axis=0)
+
+    pts_t = torch.as_tensor(pts, device=device)
+    intens_t = torch.as_tensor(intens, device=device)
+    fx, cx, cy = rig.cam.fx.tolist(), rig.cam.cx.tolist(), rig.cam.cy.tolist()
+    empty = np.zeros((0, 3), np.float32)
+    frames = []
+    for k in range(n_frames):
+        R_kt = torch.as_tensor(R_d[k], dtype=torch.float32, device=device)
+        t_kt = torch.as_tensor(p_d[k], dtype=torch.float32, device=device)
+        imgs = [render_view(fx[c], (cx[c], cy[c]), R_kt, t_kt, rig.R_f_s[c], rig.t_f_s[c],
+                            pts_t, intens_t, width, height).cpu().numpy() for c in range(2)]
+        frames.append(FrameData(ts=k * dt_f, images=np.stack(imgs).astype(np.float32),
+                                acc=empty, gyr=empty, dt=np.zeros((0,), np.float32)))
+    return SyntheticWorld(rig=rig, imu_params=imu_mod.ImuParams.euroc(), frames=frames,
+                          gt_R=R_d.astype(np.float32), gt_t=p_d.astype(np.float32),
+                          gt_v=v_d.astype(np.float32), points=pts)
 
 
 def ate_rmse(est_t, gt_t, align=True, with_scale=False):

@@ -41,6 +41,9 @@ MODULES = [
     "sadvio_tpu_torch.mesh.mesh",
     "sadvio_tpu_torch.pipeline.synthetic",
     "sadvio_tpu_torch.pipeline.slam",
+    "sadvio_tpu_torch.frontend.nofov",
+    "sadvio_tpu_torch.pipeline.mono",
+    "sadvio_tpu_torch.pipeline.nofov_mode",
 ]
 
 _PROBE = """

@@ -198,12 +198,16 @@ def test_lk_iterate_rejects_an_even_patch():
                          z((n, 4)), iters=2)
 
 
-@pytest.mark.parametrize("entry", ["make_rig", "make_world", "StereoSLAM"])
+@pytest.mark.parametrize("entry", ["make_rig", "make_world", "StereoSLAM", "make_rig_exotic",
+                                   "make_nofov_rig", "make_nofov_world", "MonoSLAM",
+                                   "NoFovSLAM"])
 def test_no_device_means_the_card(entry):
     """device=None at an entry point is the CUDA card: without one it raises
     and never carries on on the CPU; device="cpu" runs."""
     from sadvio_tpu_torch.pipeline import synthetic
     from sadvio_tpu_torch.pipeline.config import SLAMConfig
+    from sadvio_tpu_torch.pipeline.mono import MonoSLAM
+    from sadvio_tpu_torch.pipeline.nofov_mode import NoFovSLAM
     from sadvio_tpu_torch.pipeline.slam import StereoSLAM
 
     if torch.cuda.is_available():
@@ -214,6 +218,13 @@ def test_no_device_means_the_card(entry):
         "make_world": lambda **k: synthetic.make_world(n_frames=1, width=64, height=48,
                                                        n_points=20, **k).rig.t_f_s,
         "StereoSLAM": lambda **k: StereoSLAM(rig, SLAMConfig(slam_mode="bimono"), **k).rig.t_f_s,
+        "make_rig_exotic": lambda **k: synthetic.make_rig(camera="omni", **k).cam.xi,
+        "make_nofov_rig": lambda **k: synthetic.make_nofov_rig(**k).t_f_s,
+        "make_nofov_world": lambda **k: synthetic.make_nofov_world(
+            n_frames=2, width=64, height=48, n_points=20, **k).rig.t_f_s,
+        "MonoSLAM": lambda **k: MonoSLAM(rig.subset([0]), SLAMConfig(slam_mode="mono"),
+                                         **k).rig.t_f_s,
+        "NoFovSLAM": lambda **k: NoFovSLAM(rig, SLAMConfig(slam_mode="nofov"), **k).rig.t_f_s,
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -132,16 +132,16 @@ def test_pre_vi_init_prediction_is_constant_velocity(runs):
 
 def test_unported_config_keys_raise(runs):
     rig = runs["ts"].rig
+    # the mono modes belong to MonoSLAM and NoFovSLAM, not to StereoSLAM
     for change in (dict(async_health=True), dict(multithreading=True), dict(slam_mode="mono"),
-                   dict(optimizer="angularanalytic"), dict(tracker="other"),
-                   dict(pose_estimator="imu")):
+                   dict(slam_mode="nofov"), dict(tracker="other"), dict(pose_estimator="imu")):
         with pytest.raises(NotImplementedError, match=next(iter(change))):
             TSLAM(rig, dataclasses.replace(TSLAMConfig(), **change), device="cpu")
-    # the keys of the long-run path, the matcher/epipolar front end and the
-    # other marginalization forms are accepted
+    # the keys of the long-run path, the matcher/epipolar front end, the
+    # other marginalization forms and the angular optimizer are accepted
     for change in (dict(tracker="matcher"), dict(pose_graph=True), dict(global_map=True),
                    dict(marg_f64=True), dict(sparsification=False), dict(mesh3d=True),
-                   dict(pose_estimator="epipolar")):
+                   dict(pose_estimator="epipolar"), dict(optimizer="angularanalytic")):
         TSLAM(rig, dataclasses.replace(TSLAMConfig(), **change), device="cpu")
     with pytest.raises(NotImplementedError):
         runs["ts"].run([], profile=True)
