@@ -1,13 +1,14 @@
 """Sliding-window visual-inertial bundle adjustment: batched Schur-LM.
 
-Port of ``sadvio_tpu/backend/ba.py`` without the line rows, with its
-angular (bearing-vector) and numeric (central-difference) reprojection
-variants.  Landmarks not retained by the
-marginalization prior are eliminated with independent 3x3 blocks; the
-reduced dense system holds the K keyframe 15-dof states plus the P
-retained landmarks and is solved with a Jacobi-equilibrated Cholesky.
+Port of ``sadvio_tpu/backend/ba.py`` with its angular (bearing-vector) and
+numeric (central-difference) reprojection variants and its line rows.
+Landmarks not retained by the marginalization prior are eliminated with
+independent 3x3 blocks; the reduced dense system holds the K keyframe
+15-dof states, the P retained landmarks and, with a ``LineBlock``, M
+6-dof line landmarks, and is solved with a Jacobi-equilibrated Cholesky.
 Reprojection Jacobians are hand-derived; the small factors (IMU, bias walk,
-priors) are linearized with one ``torch.func.jacfwd`` over the dense delta.
+priors) and the line rows are linearized with one ``torch.func.jacfwd``
+over the dense delta.
 LM uses deferred acceptance: one linearization per iteration serves as the
 acceptance cost and, if accepted, as the next normal equations.
 
@@ -23,7 +24,10 @@ from typing import NamedTuple
 import torch
 
 from sadvio_tpu_torch.backend import factors
-from sadvio_tpu_torch.data.window import ImuChain, Observations, PriorSet, Rig, WindowState
+from sadvio_tpu_torch.data.window import (
+    ImuChain, LineBlock, Observations, PriorSet, Rig, WindowState,
+)
+from sadvio_tpu_torch.frontend import lines as lines_mod
 from sadvio_tpu_torch.models import imu as imu_mod
 from sadvio_tpu_torch.utils import geometry as geo
 from sadvio_tpu_torch.utils.struct import Struct, select
@@ -48,6 +52,9 @@ class BAOptions(Struct):
     # central-difference reprojection Jacobians instead of the hand chain
     # rule: a correctness baseline, not a hot path
     numeric: bool = False
+    # line rows: whitened at sigma_line, along-line endpoint terms at w_along
+    sigma_line: float = 1.0
+    w_along: float = 0.3
 
 
 class BAProblem(NamedTuple):
@@ -58,6 +65,7 @@ class BAProblem(NamedTuple):
     priors: PriorSet
     fixed_mask: torch.Tensor  # (K,) bool: pose frozen (gauge)
     opt_lmk_only: bool = False  # freeze all KF states (landmark-only solve)
+    lines: LineBlock = None  # optional line landmarks: 6-dof blocks that constrain poses
 
 
 def slot_of_lmk(priors: PriorSet, L: int):
@@ -90,6 +98,29 @@ def _reproj_terms(state: WindowState, obs: Observations, rig: Rig, opts: BAOptio
         w = m * factors.huber_weight(torch.linalg.norm(r, dim=-1), opts.huber)
         outs.append((r, Jp, Jl, m, w))
     return tuple(torch.stack(xs, 1) for xs in zip(*outs))
+
+
+def _line_residual_rows(Rk, tk, kf_mask, ends, lines: LineBlock, rig: Rig, opts: BAOptions):
+    """Whitened, Cauchy-weighted 4-dim line rows (K,C,M,4), flat.
+
+    Lines on probation see detached poses: their rows refine the line and
+    give the poses no Jacobian.  The robust weight comes from the
+    perpendicular error at the evaluation point and is detached too, so it
+    does not enter the Jacobian; a redescending weight drives a wrong
+    re-association's influence to zero where Huber would keep it linear."""
+    prob = lines.probation
+    Rb = torch.where(prob[None, :, None, None], Rk[:, None].detach(), Rk[:, None])
+    tb = torch.where(prob[None, :, None], tk[:, None].detach(), tk[:, None])
+    rows = []
+    for c in range(rig.C):
+        r, vis = lines_mod.line_reproj_residual(
+            rig.cam.camera(c), Rb, tb, rig.R_f_s[c], rig.t_f_s[c], ends[None, :, 0],
+            ends[None, :, 1], lines.obs[:, c], sigma_px=opts.sigma_line, w_along=opts.w_along)
+        m = lines.obs_mask[:, c] & vis & lines.mask[None, :] & kf_mask[:, None]
+        rn = torch.linalg.norm(r[..., :2].detach(), dim=-1)
+        w = torch.sqrt(1.0 / (1.0 + (rn / (2.0 * opts.huber)) ** 2))
+        rows.append(torch.where(m[..., None], r * w[..., None], torch.zeros_like(r)))
+    return torch.stack(rows, 1).reshape(-1)
 
 
 def _retained_lmk(state: WindowState, priors: PriorSet):
@@ -179,9 +210,12 @@ def _huber_cost(r, m, d):
 
 def _linearize(problem: BAProblem, opts: BAOptions) -> _Lin:
     state, obs, rig, imu, priors = problem[:5]
+    lines = problem.lines
     K, C, L = obs.mask.shape
     P = priors.P
-    KD, Dd = K * D, K * D + P * 3
+    M = 0 if lines is None else lines.M
+    KD, off_l = K * D, K * D + P * 3  # offsets of the retained and line blocks
+    Dd = off_l + M * 6
     dt_, dev = state.lmk.dtype, state.lmk.device
 
     r, Jp, Jl, m, w = _reproj_terms(state, obs, rig, opts)
@@ -206,10 +240,16 @@ def _linearize(problem: BAProblem, opts: BAOptions) -> _Lin:
     def rfun(dxd):
         dk = dxd[:KD].reshape(K, D)
         Rk, tk = geo.pose_retract(state.R, state.t, dk[:, :6])
-        dl = dxd[KD:].reshape(P, 3)
+        dl = dxd[KD:off_l].reshape(P, 3)
         pl = pl0 + torch.where(priors.prior_slot_mask[:, None], dl, torch.zeros_like(dl))
-        return _dense_residuals_pl(Rk, tk, state.v + dk[:, 6:9], state.ba + dk[:, 9:12],
-                                   state.bg + dk[:, 12:15], pl, imu, priors, opts, W_imu)
+        r_small = _dense_residuals_pl(Rk, tk, state.v + dk[:, 6:9], state.ba + dk[:, 9:12],
+                                      state.bg + dk[:, 12:15], pl, imu, priors, opts, W_imu)
+        if lines is None:
+            return r_small
+        de = dxd[off_l:].reshape(M, 2, 3)
+        ends = lines.ends + torch.where(lines.mask[:, None, None], de, torch.zeros_like(de))
+        return torch.cat([r_small, _line_residual_rows(Rk, tk, state.kf_mask, ends, lines,
+                                                       rig, opts)])
 
     dx0 = torch.zeros(Dd, dtype=dt_, device=dev)
     r_dense = rfun(dx0)
@@ -224,15 +264,15 @@ def _linearize(problem: BAProblem, opts: BAOptions) -> _Lin:
     b[:KD] += torch.cat([bp, bp.new_zeros((K, D - 6))], 1).reshape(-1)
 
     eyeP = torch.eye(P, dtype=dt_, device=dev)
-    Hd = H[KD:, KD:].reshape(P, 3, P, 3) + Hll_ret[:, :, None, :] * eyeP[:, None, :, None]
-    H[KD:, KD:] = Hd.reshape(P * 3, P * 3)
-    b[KD:] += bl_ret.reshape(-1)
+    Hd = H[KD:off_l, KD:off_l].reshape(P, 3, P, 3) + Hll_ret[:, :, None, :] * eyeP[:, None, :, None]
+    H[KD:off_l, KD:off_l] = Hd.reshape(P * 3, P * 3)
+    b[KD:off_l] += bl_ret.reshape(-1)
 
-    Hc = H[:KD, KD:].reshape(K, D, P, 3).clone()
+    Hc = H[:KD, KD:off_l].reshape(K, D, P, 3).clone()
     Hc[:, :6] += Hx.transpose(1, 2)
     Hc2 = Hc.reshape(KD, P * 3)
-    H[:KD, KD:] = Hc2
-    H[KD:, :KD] = Hc2.T
+    H[:KD, KD:off_l] = Hc2
+    H[KD:off_l, :KD] = Hc2.T
 
     cost = _huber_cost(r, m, opts.huber) + torch.sum(r_dense * r_dense)
     return _Lin(Hll, bl, Hpl, Hpp, bp, H, b, cost)
@@ -298,7 +338,11 @@ def _free_mask(problem: BAProblem):
     if problem.opt_lmk_only:
         m_k = torch.zeros_like(m_k)
     m_p = problem.priors.prior_slot_mask.to(m_k.dtype)[:, None].expand(P, 3)
-    return torch.cat([m_k.reshape(-1), m_p.reshape(-1)])
+    parts = [m_k.reshape(-1), m_p.reshape(-1)]
+    if problem.lines is not None:
+        # line blocks stay free in a landmark-only solve: they are landmarks
+        parts.append(problem.lines.mask.to(m_k.dtype)[:, None].expand(-1, 6).reshape(-1))
+    return torch.cat(parts)
 
 
 def robust_cost(problem: BAProblem, opts: BAOptions):
@@ -306,23 +350,42 @@ def robust_cost(problem: BAProblem, opts: BAOptions):
     state = problem.state
     r, _, _, m, _ = _reproj_terms(state, problem.obs, problem.rig, opts)
     rd = _dense_residuals(state, problem.imu, problem.priors, opts)
-    return _huber_cost(r, m, opts.huber) + torch.sum(rd * rd)
+    cost = _huber_cost(r, m, opts.huber) + torch.sum(rd * rd)
+    if problem.lines is not None:
+        rl = _line_residual_rows(state.R, state.t, state.kf_mask, problem.lines.ends,
+                                 problem.lines, problem.rig, opts)
+        cost = cost + torch.sum(rl * rl)
+    return cost
 
 
 def _ba_solve_impl(problem: BAProblem, opts: BAOptions, n_iters: int):
     free = _free_mask(problem)
+    lines = problem.lines
+    off_l = problem.state.K * D + problem.priors.P * 3
+
+    def at(state, ends):
+        prob = problem._replace(state=state)
+        return prob if lines is None else prob._replace(lines=lines.replace(ends=ends))
+
     lin = _linearize(problem, opts)
     cost0 = lin.cost
     state, cost = problem.state, cost0
+    ends = None if lines is None else lines.ends
     lam = torch.tensor(opts.lam_init, dtype=state.lmk.dtype, device=state.lmk.device)
     costs, accepts = [], []
     for _ in range(n_iters):
-        dxd, dl, ok = _solve_from_lin(lin, problem._replace(state=state), opts, free, lam)
+        dxd, dl, ok = _solve_from_lin(lin, at(state, ends), opts, free, lam)
         trial = _apply_dense_delta(state, problem.priors, dxd)
         trial = trial.replace(lmk=trial.lmk + dl)
-        lin_t = _linearize(problem._replace(state=trial), opts)
+        ends_t = ends
+        if lines is not None:
+            de = dxd[off_l:].reshape(ends.shape)
+            ends_t = ends + torch.where(lines.mask[:, None, None], de, torch.zeros_like(de))
+        lin_t = _linearize(at(trial, ends_t), opts)
         accept = ok & torch.isfinite(lin_t.cost) & (lin_t.cost < cost)
         state = select(accept, trial, state)
+        if lines is not None:
+            ends = torch.where(accept, ends_t, ends)
         lin = select(accept, lin_t, lin)
         lam = torch.clamp(torch.where(accept, lam * opts.lam_down, lam * opts.lam_up), 1e-9, 1e6)
         cost = torch.where(accept, lin_t.cost, cost)
@@ -331,9 +394,13 @@ def _ba_solve_impl(problem: BAProblem, opts: BAOptions, n_iters: int):
     stats = {"cost0": cost0, "cost": cost}
     if n_iters:
         stats.update(costs=torch.stack(costs), accepted=torch.stack(accepts))
+    if lines is not None:
+        stats["line_ends"] = ends
     return state, stats
 
 
 def ba_solve(problem: BAProblem, opts: BAOptions):
-    """Run LM on the window problem; returns (new_state, stats)."""
+    """Run LM on the window problem; returns (new_state, stats).  With
+    ``problem.lines`` the optimized endpoints come back in
+    ``stats["line_ends"]``."""
     return _ba_solve_impl(problem, opts, opts.iters)

@@ -4,7 +4,7 @@
 numpy arrays (``jax.tree.map(np.asarray, obj)``) into the port's container
 of the same name, recursively: ``Rig`` with any camera model (``Pinhole``,
 ``DoubleSphere``, ``Fisheye``, ``Omni``), ``WindowState``,
-``Observations``, ``PriorSet``, ``ImuChain``, ``Preintegration``,
+``Observations``, ``PriorSet``, ``ImuChain``, ``LineBlock``, ``Preintegration``,
 ``TrackState``, ``GlobalMap`` and ``ImuParams``.  Integer arrays become
 int64 tensors; ``ImuParams`` fields become floats; packed BRIEF descriptors
 ((N,8) uint32 words) become the port's (N,256) bool rows.  Nothing here
@@ -13,8 +13,8 @@ imports JAX: objects are matched by class name and read field by field.
 ``slam_state_from_numpy`` carries the long-run state of a JAX-package
 ``StereoSLAM`` (global map, slot descriptors, archive, pose-graph edges and
 the mesher's triangles), ``MonoSLAM``'s bootstrap and VIInit settings and
-``NoFovSLAM``'s camera-1 host state into the port's pipeline of the same
-class.  ``pyramid_from_numpy`` crops the JAX package's edge-padded pyramid
+``NoFovSLAM``'s camera-1 host state and ``StereoSLAM``'s typed channels
+into the port's pipeline of the same class.  ``pyramid_from_numpy`` crops the JAX package's edge-padded pyramid
 levels to the port's unpadded ones.
 """
 
@@ -35,7 +35,7 @@ def _classes():
     return {c.__name__: c for c in (
         cameras.Pinhole, cameras.DoubleSphere, cameras.Fisheye, cameras.Omni, window.Rig,
         window.WindowState, window.Observations, window.PriorSet, window.ImuChain,
-        imu.Preintegration, imu.ImuParams, TrackState, GlobalMap)}
+        window.LineBlock, imu.Preintegration, imu.ImuParams, TrackState, GlobalMap)}
 
 
 def _tensor(x, device):
@@ -89,7 +89,8 @@ def pyramid_from_numpy(levels, device=None):
 def slam_state_from_numpy(slam, *, global_map=None, lmk_desc=None, archived_kf=None,
                           pose_graph_edges=None, kf_cov=None, mesh=None, boot=None,
                           vio_init_kfs=None, vi_opt_scale=None, scale_state=None, uv1_last=None,
-                          v1_last=None, uv1_hist=None, hist_mask=None, pyr1_hist=None):
+                          v1_last=None, uv1_hist=None, hist_mask=None, pyr1_hist=None,
+                          channels=None):
     """Continue a JAX-package run's state in the port's ``slam``.
 
     global_map: numpy-leaved GlobalMap; lmk_desc: (L,8) uint32 slot
@@ -100,7 +101,10 @@ def slam_state_from_numpy(slam, *, global_map=None, lmk_desc=None, archived_kf=N
     "ts0"} or None); vio_init_kfs; vi_opt_scale.  ``NoFovSLAM``:
     scale_state ({"applied", "s", "n_est"}); uv1_last (L,2), v1_last (L,),
     uv1_hist (K,L,2), hist_mask (K,L) on the host; pyr1_hist, camera 1's
-    pyramid (or None) per window slot.  Timestamps stay host float64, poses
+    pyramid (or None) per window slot.  channels: one dict per entry of
+    ``slam.channels``, in order, of the JAX channel's state attributes by
+    name (arrays, and Python ints such as the line channel's ``_head``).
+    Timestamps stay host float64, poses
     and edge blocks host numpy; tensors go to the device of ``slam``."""
     dev = slam.device
     if global_map is not None:
@@ -137,4 +141,7 @@ def slam_state_from_numpy(slam, *, global_map=None, lmk_desc=None, archived_kf=N
             setattr(slam, name, np.array(val, dt))
     if pyr1_hist is not None:
         slam.pyr1_hist = [None if p is None else pyramid_from_numpy(p, dev) for p in pyr1_hist]
+    for ch, state in zip(slam.channels, channels or ()):
+        for name, val in state.items():
+            setattr(ch, name, val if isinstance(val, int) else _tensor(val, dev))
     return slam

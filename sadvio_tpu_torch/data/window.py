@@ -1,7 +1,6 @@
 """Sliding-window state as fixed-shape masked tensors.
 
-Port of ``sadvio_tpu/data/window.py`` (``LineBlock`` is not ported yet).
-Identity is the slot index; lifecycle flags are bitmask tensors; the
+Port of ``sadvio_tpu/data/window.py``.  Identity is the slot index; lifecycle flags are bitmask tensors; the
 window is the leading axis of every tensor.  Index tensors are int64.
 """
 
@@ -71,6 +70,33 @@ class Observations(Struct):
     def create(cls, K: int, C: int, L: int, dtype=torch.float32, device=None):
         return cls(uv=torch.zeros((K, C, L, 2), dtype=dtype, device=device),
                    mask=torch.zeros((K, C, L), dtype=torch.bool, device=device))
+
+
+@dataclass
+class LineBlock(Struct):
+    """Line landmarks and their per-keyframe segment observations for the
+    window BA: each line is a 6-dof block (two world endpoints) appended to
+    the dense system; observation rows are aligned to window slots."""
+
+    ends: torch.Tensor  # (M,2,3) world endpoints
+    mask: torch.Tensor  # (M,) bool live line landmarks
+    obs: torch.Tensor  # (K,C,M,2,2) observed 2D segment endpoints (px)
+    obs_mask: torch.Tensor  # (K,C,M) bool
+    # lines with two observation rows refine their own geometry but do not
+    # constrain poses until a third view confirms them (a mis-paired stereo
+    # birth is self-consistent by construction)
+    probation: torch.Tensor  # (M,) bool
+
+    @classmethod
+    def create(cls, K: int, C: int, M: int, dtype=torch.float32, device=None):
+        zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=device)
+        return cls(ends=torch.zeros((M, 2, 3), dtype=dtype, device=device), mask=zb(M),
+                   obs=torch.zeros((K, C, M, 2, 2), dtype=dtype, device=device),
+                   obs_mask=zb(K, C, M), probation=zb(M))
+
+    @property
+    def M(self):
+        return self.ends.shape[0]
 
 
 @dataclass

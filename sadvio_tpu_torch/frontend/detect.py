@@ -71,6 +71,13 @@ def occupancy_mask(H, W, uv, valid, radius: int = 5):
     return occ < 0.5
 
 
+def topk_stable(x, k: int):
+    """The k largest entries along the last dim, equal values in index
+    order (the order of ``jax.lax.top_k``, on every device)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def grid_topk(score, allow, gh: int, gw: int, k_per_cell: int, margin: int = 8):
     """Top k_per_cell per (gh,gw) cell; returns uv (N,2), s (N,), valid (N,).
 
@@ -82,8 +89,7 @@ def grid_topk(score, allow, gh: int, gw: int, k_per_cell: int, margin: int = 8):
     s = torch.where(allow & border, score, torch.zeros_like(score))
     s = s[: gh * ch, : gw * cw].reshape(gh, ch, gw, cw).permute(0, 2, 1, 3)
     s = s.reshape(gh * gw, ch * cw)
-    top, idx = torch.sort(s, dim=1, descending=True, stable=True)
-    top, idx = top[:, :k_per_cell], idx[:, :k_per_cell]
+    top, idx = topk_stable(s, k_per_cell)
     cy = idx // cw
     cx = idx % cw
     cell = torch.arange(gh * gw, device=score.device)[:, None]

@@ -36,6 +36,7 @@ class MonoSLAM(StereoSLAM):
     """Monocular VO / VIO on one device (None: the CUDA card)."""
 
     MODES = ("mono", "monovio")
+    TYPED_FEATURES = False  # the typed channels are ported in the stereo class only
 
     def __init__(self, rig, config, imu_params=None, seed=0, device=None,
                  boot_parallax_deg: float = 1.0, vio_init_kfs: int = 6):
@@ -172,12 +173,14 @@ class MonoSLAM(StereoSLAM):
     # ------------------------------------------------------------------
 
     def _insert_kf(self, pyr_new, tracks, window, obs, imu_chain, pre_cur, R_kf, t_kf, v_kf,
-                   ts: float, slot: int, imu_gap_ok: bool = True, gm=None, lmk_desc=None):
+                   ts: float, slot: int, imu_gap_ok: bool = True, gm=None, lmk_desc=None,
+                   ext_det=None):
         """Insert a keyframe at ``slot``: detect and resurrect in camera 0's
         slot range, write camera 0's observation row, and triangulate every
-        slot that has two window observations and no landmark yet.  ``gm``
-        and ``lmk_desc`` (the stereo pipeline's global map) are accepted and
-        unused.  Returns (tracks, window, obs, imu_chain)."""
+        slot that has two window observations and no landmark yet.  ``gm``,
+        ``lmk_desc`` (the stereo pipeline's global map) and ``ext_det`` (its
+        csv keypoints) are accepted and unused.  Returns (tracks, window,
+        obs, imu_chain)."""
         _, _, _, _, new_uv0, new_v0, window, obs = self._detect_into_slots(
             pyr_new[0][0], tracks, window, obs, R_kf, t_kf, self._cam0_slot_limit)
 

@@ -21,6 +21,11 @@ the monocular and non-overlapping-FoV modes (``pipeline/mono.py``,
               a reset the bootstrap keyframe relocalizes against the archive
   mesh3d    : Delaunay mesh over the landmarks + dense ray-cast cloud at
               keyframe rate
+  channels  : each ``features_handled`` label beyond pointxd builds its
+              typed channel, updated at keyframe rate; linexd lines enter
+              the window BA as pose-constraining 6-dof blocks, and the csv
+              point detector reads precomputed keypoints instead of
+              detecting
 
 All estimator state lives in fixed-shape tensors on ``device``; the host
 loop reads back the health vector once per frame and a small state pack
@@ -38,11 +43,13 @@ Subclass hooks: ``_bootstrap`` (the first keyframe, before
 solves the scale too) and ``_last_pyr`` (the latest frame's pyramids).
 ``optimizer: angular*`` switches the window BA to the bearing-vector
 residual.  Config keys for parts that are not ported yet raise
-NotImplementedError.
+NotImplementedError: ``async_health``, ``multithreading``, and typed
+features in the mono and nofov classes (``TYPED_FEATURES``).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,11 +61,14 @@ from sadvio_tpu_torch.data.window import (
     LMK_RESURRECTED, ImuChain, Observations, PriorSet, Rig, WindowState,
 )
 from sadvio_tpu_torch.frontend import (
-    detect, epipolar, eskf as eskf_mod, klt, match as match_mod, pnp, triangulate,
+    csv_keypoints, detect, epipolar, eskf as eskf_mod, klt, lines as lines_mod,
+    match as match_mod, pnp, triangulate,
 )
 from sadvio_tpu_torch.mesh.mesh import MeshConfig, Mesher
 from sadvio_tpu_torch.models import cameras, imu as imu_mod
+from sadvio_tpu_torch.pipeline.channels import BBoxChannel, EdgeletChannel, EllipseChannel
 from sadvio_tpu_torch.pipeline.config import SLAMConfig
+from sadvio_tpu_torch.pipeline.line_channel import LineChannel
 from sadvio_tpu_torch.utils import geometry as geo
 from sadvio_tpu_torch.utils.struct import Struct, entry_device, tree_map
 
@@ -80,17 +90,22 @@ class TrackState(Struct):
                    has3d=torch.zeros(L, dtype=torch.bool, device=device))
 
 
-def _check_config(cfg: SLAMConfig, modes):
+CSV_DETECTORS = ("csv", "cvcsv")
+
+
+def _check_config(cfg: SLAMConfig, modes, typed_features: bool):
     """Refuse a slam_mode outside ``modes`` (the class's own) and the config
-    keys whose code paths are not ported yet."""
+    keys whose code paths are not ported yet; typed features (any label
+    beyond plain pointxd) only where ``typed_features``."""
     todo = {
         "slam_mode": cfg.slam_mode not in modes,
         "async_health": cfg.async_health,
         "multithreading": cfg.multithreading,
         "tracker": cfg.tracker not in ("klt", "matcher"),
         "pose_estimator": not cfg.pose_estimator.lower().startswith(("pnp", "epipolar")),
-        "features": any(f.label.lower() != "pointxd" or f.detector.lower() in ("csv", "cvcsv")
-                        for f in cfg.features),
+        "features": not typed_features and any(
+            f.label.lower() != "pointxd" or f.detector.lower() in CSV_DETECTORS
+            for f in cfg.features),
     }
     bad = [k for k, v in todo.items() if v]
     if bad:
@@ -116,9 +131,10 @@ class StereoSLAM:
     """Stereo VO / stereo VIO pipeline on one device (None: the CUDA card)."""
 
     MODES = ("bimono", "bimonovio")  # the slam_mode values this class runs
+    TYPED_FEATURES = True  # features_handled beyond plain pointxd are ported here
 
     def __init__(self, rig: Rig, config: SLAMConfig, imu_params=None, seed=0, device=None):
-        _check_config(config, self.MODES)
+        _check_config(config, self.MODES, self.TYPED_FEATURES)
         self.device = entry_device(device)
         self.klt_engine = "fused"  # klt.track engine: "fused" | "levels"
         self.rig = rig.to(self.device)
@@ -161,12 +177,37 @@ class StereoSLAM:
             self.mesher = Mesher(self.rig, MeshConfig(
                 zncc_tsh=config.zncc_tsh, max_edge_len=config.max_length_tsh,
                 max_ray_depth=MeshConfig().max_lmk_depth))
+        self._build_channels(config.features)
         # current-frame estimate and constant-velocity model (kept by reset)
         self.R_cur = torch.eye(3, device=self.device)
         self.t_cur = torch.zeros(3, device=self.device)
         self.v_cur = torch.zeros(3, device=self.device)
         self.dT = (torch.eye(3, device=self.device), torch.zeros(3, device=self.device))
         self._clear()
+
+    def _build_channels(self, features):
+        """The features_handled dispatch: linexd (in the window BA),
+        edgeletxd, ellipsepatternxd, bboxxd, and pointxd with the csv
+        detector; other labels are ignored, as in the JAX package."""
+        stereo = self.C >= 2
+        self.channels = []
+        self._line_ch = None  # the in-BA linexd channel, if configured
+        self._use_csv = False  # precomputed keypoints replace point detection
+        for f in features:
+            label = f.label.lower()
+            if label == "linexd" and stereo:
+                self._line_ch = LineChannel(self.rig, in_ba=True, k_window=self.caps.K)
+                self.channels.append(self._line_ch)
+            elif label == "edgeletxd" and stereo:
+                self.channels.append(EdgeletChannel(self.rig))
+            elif label == "ellipsepatternxd":
+                self.channels.append(EllipseChannel(self.rig, side=f.pattern_side or 1.0))
+            elif label == "bboxxd" and stereo:
+                self.channels.append(BBoxChannel(self.rig))
+            elif label == "pointxd" and f.detector.lower() in CSV_DETECTORS:
+                self._use_csv = True
+                self._csv_folder = f.folder
+                self._csv_stamps = None
 
     def _clear(self):
         K, L, P = self.caps.K, self.caps.L, self.caps.P
@@ -324,10 +365,11 @@ class StereoSLAM:
         return tracks, R_new, t_new, health, dR, dt_
 
     def _detect_into_slots(self, img0, tracks: TrackState, window: WindowState,
-                           obs: Observations, R_kf, t_kf, slot_limit: int):
+                           obs: Observations, R_kf, t_kf, slot_limit: int, ext_det=None):
         """Camera 0's half of a keyframe insertion: detect in the free image
-        area, resurrect dead in-map landmarks, and give each fresh detection
-        a free landmark slot below ``slot_limit``.
+        area (or take the precomputed keypoints ``ext_det`` = (uv, valid)
+        outside 5 px of live tracks), resurrect dead in-map landmarks, and
+        give each fresh detection a free landmark slot below ``slot_limit``.
 
         Returns (uv_det, v_det, take, slot_of_det, new_uv0, new_v0, window,
         obs): the detections, which of them claimed a slot and which slot,
@@ -338,9 +380,14 @@ class StereoSLAM:
         L = self.caps.L
         ar_L = torch.arange(L, device=dev)
         # 1. detect in free slots with the occupancy mask
-        uv_det, _, v_det = detect.detect_features(
-            img0, existing_uv=tracks.uv[0], existing_valid=tracks.valid[0],
-            gh=8, gw=10, k_per_cell=max(1, self.cfg.features[0].n_per_cell))
+        if ext_det is not None:
+            uv_det, v_det = ext_det
+            d2ex = ((uv_det[:, None] - tracks.uv[0][None]) ** 2).sum(-1)
+            v_det = v_det & ~((d2ex < 25.0) & tracks.valid[0][None, :]).any(1)
+        else:
+            uv_det, _, v_det = detect.detect_features(
+                img0, existing_uv=tracks.uv[0], existing_valid=tracks.valid[0],
+                gh=8, gw=10, k_per_cell=max(1, self.cfg.features[0].n_per_cell))
         M = uv_det.shape[0]
         # 1b. resurrection: dead in-map landmarks re-associated to the
         # mutual-nearest fresh detection within 5 px of their projection
@@ -381,9 +428,10 @@ class StereoSLAM:
 
     def _insert_kf(self, pyr_new, tracks: TrackState, window: WindowState, obs: Observations,
                    imu_chain: ImuChain, pre_cur, R_kf, t_kf, v_kf, ts: float, slot: int,
-                   imu_gap_ok: bool = True, gm=None, lmk_desc=None):
-        """Insert a keyframe at ``slot``: detect, resurrect, stereo-track,
-        triangulate, write the observation rows.
+                   imu_gap_ok: bool = True, gm=None, lmk_desc=None, ext_det=None):
+        """Insert a keyframe at ``slot``: detect (or take the csv keypoints
+        ``ext_det``), resurrect, stereo-track, triangulate, write the
+        observation rows.
 
         Returns (tracks, window, obs, imu_chain); with a global map ``gm``
         also (lmk_desc, gm_counts, gm_pack): the slot descriptors refreshed
@@ -396,7 +444,7 @@ class StereoSLAM:
         L = self.caps.L
         img0 = pyr_new[0][0]
         uv_det, v_det, take, slot_of_det, new_uv0, new_v0, window, obs = \
-            self._detect_into_slots(img0, tracks, window, obs, R_kf, t_kf, L)
+            self._detect_into_slots(img0, tracks, window, obs, R_kf, t_kf, L, ext_det)
 
         # 1c. long-range resurrection from the descriptor global map: fresh
         # detections that match an archived landmark by projection + BRIEF
@@ -465,16 +513,26 @@ class StereoSLAM:
             return tracks, window, obs, imu_chain, lmk_desc, gm_counts, gm_pack
         return tracks, window, obs, imu_chain
 
-    def _backend(self, window, obs, imu_chain, priors, fixed_n: int):
-        """Window BA + outlier removal."""
+    def _backend(self, window, obs, imu_chain, priors, fixed_n: int, lines=None):
+        """Window BA + outlier removal.  ``lines``: an optional LineBlock
+        whose lines constrain poses; the optimized endpoints come back in
+        stats["line_ends"] and the observations that fail the same 3 px gate
+        (perpendicular error) are dropped in stats["line_obs_mask"]."""
         fixed = torch.arange(self.caps.K, device=self.device) < fixed_n
-        problem = ba.BAProblem(window, obs, self.rig, imu_chain, priors, fixed, False)
+        problem = ba.BAProblem(window, obs, self.rig, imu_chain, priors, fixed, False, lines)
         new_window, stats = ba.ba_solve(problem, self._ba_opts)
         r, _, _, m, _ = ba._reproj_terms(new_window, obs, self.rig, self._ba_opts)
         bad_obs = m.bool() & (torch.linalg.norm(r, dim=-1) > 3.0)
         obs = obs.replace(mask=obs.mask & ~bad_obs)
         starved = new_window.lmk_mask & (obs.mask.sum((0, 1)) < 2)
         new_window = new_window.replace(lmk_mask=new_window.lmk_mask & ~starved)
+        if lines is not None:
+            ends = stats["line_ends"]
+            perr = torch.stack([lines_mod.line_reproj_residual(
+                self.rig.cam.camera(c), new_window.R[:, None], new_window.t[:, None],
+                self.rig.R_f_s[c], self.rig.t_f_s[c], ends[None, :, 0], ends[None, :, 1],
+                lines.obs[:, c])[0][..., :2].abs().amax(-1) for c in range(2)], 1)
+            stats["line_obs_mask"] = lines.obs_mask & ~(lines.mask[None, None, :] & (perr > 3.0))
         return new_window, obs, stats
 
     def _marg_roll(self, window, obs, imu_chain, priors, tracks, vio: bool, gm=None,
@@ -579,7 +637,7 @@ class StereoSLAM:
         ins = self._insert_kf(
             pyr_new, self.tracks, self.window, self.obs, self.imu, self.pre_cur,
             R0, t0, torch.zeros(3, device=dev), float(frame.ts), 0,
-            gm=self.global_map_state, lmk_desc=self.lmk_desc)
+            gm=self.global_map_state, lmk_desc=self.lmk_desc, ext_det=self._csv_det(frame))
         self.tracks, self.window, self.obs, self.imu = ins[:4]
         R0_h, t0_h = R0.cpu().numpy(), t0.cpu().numpy()
         if self.global_map_state is not None:
@@ -605,6 +663,8 @@ class StereoSLAM:
         self.kf_traj.append((frame.ts, R0_h, t0_h))
         self.traj.append((frame.ts, R0_h, t0_h))
         out["is_kf"] = True
+        if self._line_ch is not None:
+            out.update(self._line_ch.on_keyframe_pre_ba(pyr_new[0][0], pyr_new[1][0], R0, t0, 0))
         return out
 
     def process_frame(self, frame) -> dict:
@@ -683,6 +743,8 @@ class StereoSLAM:
                 self.window, self.obs, self.imu, self.priors, self.tracks, n_ovf, degen = mr
             if self.cfg.marginalization:
                 self._have_priors = True
+            if self._line_ch is not None:
+                self._line_ch.on_roll()  # the slot-aligned line rows shift too
             self.kf_ts.pop(0)
             self.kf_cov.pop(0)
             self.n_kf = K - 1
@@ -692,7 +754,7 @@ class StereoSLAM:
         ins = self._insert_kf(
             pyr_new, self.tracks, self.window, self.obs, self.imu, self.pre_cur,
             R_new, t_new, v_pred, float(frame.ts), slot, imu_gap_ok=bool(gap_ok),
-            gm=self.global_map_state, lmk_desc=self.lmk_desc)
+            gm=self.global_map_state, lmk_desc=self.lmk_desc, ext_det=self._csv_det(frame))
         self.tracks, self.window, self.obs, self.imu = ins[:4]
         gm_counts = gm_pack = None
         if self.global_map_state is not None:
@@ -706,13 +768,22 @@ class StereoSLAM:
                                             bg_lin=self.window.bg[slot])
         self._imu_n = 0
 
+        # the line channel detects and associates at the new keyframe before
+        # the BA, and its lines enter the BA
+        ba_lines = None
+        if self._line_ch is not None:
+            out.update(self._line_ch.on_keyframe_pre_ba(pyr_new[0][0], pyr_new[1][0], R_new,
+                                                        t_new, slot))
+            ba_lines = self._line_ch.ba_block()
         fixed_n = 1 if not self._have_priors else 0
         fixed_n = max(fixed_n, self.cfg.fixed_frame_number if self.n_kf > 1 else 1)
         # vision-only window BA until VIInit has run
         imu_for_ba = (self.imu if self.vi_initialized else
                       self.imu.replace(mask=torch.zeros_like(self.imu.mask)))
         self.window, self.obs, stats = self._backend(self.window, self.obs, imu_for_ba,
-                                                     self.priors, fixed_n)
+                                                     self.priors, fixed_n, ba_lines)
+        if ba_lines is not None:
+            self._line_ch.apply_ba(stats["line_ends"], stats["line_obs_mask"])
         self.R_cur = self.window.R[slot]
         self.t_cur = self.window.t[slot]
         self.v_cur = self.window.v[slot]
@@ -746,6 +817,10 @@ class StereoSLAM:
             imgs = torch.stack([pyr_new[c][0] for c in range(2)])
             self.mesher.update(imgs, self.window, self.R_cur, self.t_cur)
             out["mesh_triangles"] = int(self.mesher.tri_mask.sum())
+        img1 = pyr_new[1][0] if self.C > 1 else pyr_new[0][0]
+        for ch in self.channels:
+            if ch is not self._line_ch:  # the line channel ran before the BA
+                out.update(ch.on_keyframe(frame, pyr_new[0][0], img1, self.R_cur, self.t_cur))
         return out
 
     def _run_vi_init(self):
@@ -768,6 +843,8 @@ class StereoSLAM:
         if self._have_priors:
             # priors made before the alignment must move with the map
             self.priors = marg.gauge_transform_priors(self.priors, R_align, s)
+        if self._line_ch is not None:
+            self._line_ch.gauge_transform(R_align, s)
         self.vi_initialized = True
         self.window, self.obs, _ = self._backend(self.window, self.obs, self.imu,
                                                  self.priors, 1)
@@ -947,7 +1024,37 @@ class StereoSLAM:
                 src_idx=len(self.archived_kf) - 1)
             self._maybe_compact_archive()
         self._clear()
+        if self._line_ch is not None:
+            self._line_ch.clear()
         self.n_resets += 1
+
+    def _csv_det(self, frame):
+        """The precomputed keypoints of this frame, (uv (256,2), valid) on
+        the device, or None without the csv detector.  Files are named by
+        nanosecond stamps; float64 seconds cannot round-trip EuRoC-size
+        stamps, so the folder is indexed once and the nearest stamp within
+        1 ms is read.  Descriptors in the files are ignored (desc_dim=0):
+        the tracker needs positions only."""
+        if not self._use_csv:
+            return None
+        if self._csv_stamps is None:
+            try:
+                names = os.listdir(self._csv_folder)
+            except OSError:
+                names = []
+            stamps = [int(n[:-4]) for n in names if n.endswith(".csv") and n[:-4].isdigit()]
+            self._csv_stamps = np.sort(np.asarray(stamps, np.int64))
+        ts_ns = int(round(frame.ts * 1e9))
+        st = self._csv_stamps
+        if len(st):
+            i = int(np.searchsorted(st, ts_ns))
+            best = min((j for j in (i - 1, i) if 0 <= j < len(st)),
+                       key=lambda j: abs(int(st[j]) - ts_ns))
+            if abs(int(st[best]) - ts_ns) < 1_000_000:
+                ts_ns = int(st[best])
+        uv, _, v = csv_keypoints.load_csv_keypoints(self._csv_folder, ts_ns, capacity=256,
+                                                    desc_dim=0, device=self.device)
+        return uv, v
 
     def run(self, frames, log_dir=None, profile=False):
         """Process a frame list; returns the frame-rate positions (T,3)."""

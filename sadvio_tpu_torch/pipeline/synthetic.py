@@ -1,10 +1,10 @@
 """Synthetic EuRoC-like world: rendered stereo stream + IMU + ground truth.
 
-Port of the point-feature part of ``sadvio_tpu/pipeline/synthetic.py``
-(no line segments, no exposure jitter or occluder) with both trajectories,
-the four camera models and the non-overlapping-FoV world.  The scene is a
-wall of Gaussian intensity blobs rendered with torch on the caller's
-device; IMU samples come from the analytic trajectory by high-rate finite
+Port of ``sadvio_tpu/pipeline/synthetic.py`` without the exposure jitter
+and the occluder, with both trajectories, the four camera models, the
+line-segment world and the non-overlapping-FoV world.  The scene is a wall
+of Gaussian intensity blobs, optionally crossed by bright 3D segments,
+rendered with torch on the caller's device; IMU samples come from the analytic trajectory by high-rate finite
 differences in float64 on the host.  With the same arguments it draws the
 same random numbers in the same order as the JAX package.
 """
@@ -38,6 +38,7 @@ class SyntheticWorld(NamedTuple):
     gt_t: np.ndarray  # (T,3)
     gt_v: np.ndarray  # (T,3)
     points: np.ndarray  # (N,3)
+    segments: np.ndarray = np.zeros((0, 2, 3), np.float32)  # (S,2,3) 3D line segments
 
 
 # per-model parameters of the synthetic rigs, beside fx = fy, cx, cy
@@ -94,6 +95,46 @@ def render_view(cam_f, cam_c, R_w_f, t_w_f, R_f_s, t_f_s, pts, intens, width: in
     return torch.clamp(img, 0.0, 255.0)
 
 
+def _sample_segments(rng, n_lines):
+    """3D segments on the blob wall (z in [4.8, 7.8]), oriented away from the
+    stereo baseline (x axis), along which two-view line triangulation is
+    degenerate.  Drawn on the host, in the JAX package's order."""
+    mid = np.stack([rng.uniform(-4.0, 4.0, n_lines), rng.uniform(-2.8, 2.8, n_lines),
+                    rng.uniform(4.8, 7.8, n_lines)], -1)
+    ang = rng.uniform(np.deg2rad(25), np.deg2rad(155), n_lines)
+    flip = rng.choice([-1.0, 1.0], n_lines)
+    d = np.stack([np.cos(ang) * flip, np.sin(ang), rng.uniform(-0.15, 0.15, n_lines)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    half = rng.uniform(1.0, 1.8, (n_lines, 1))
+    return np.stack([mid - d * half, mid + d * half], axis=1).astype(np.float32)
+
+
+def _render_segments(img, R_f_s, t_f_s, f, cx, cy, R_k, t_k, segs, thickness=1.3, amp=150.0):
+    """Add the pinhole projections of 3D segments (S,2,3) to one image, all
+    segments at once in float64 on the image's device: a straight 3D line
+    projects to the chord between its projected endpoints.  A segment with
+    an endpoint closer than 0.5 m is not drawn."""
+    H, W = img.shape
+    f64 = lambda x: torch.as_tensor(x, dtype=torch.float64, device=img.device)
+    p_f = (f64(segs) - f64(t_k)) @ f64(R_k)  # R^T (p - t), rows
+    p_c = (p_f - f64(t_f_s)) @ f64(R_f_s)
+    keep = (p_c[..., 2] >= 0.5).all(-1).to(torch.float64)
+    u = f * p_c[..., 0] / p_c[..., 2] + cx  # (S,2)
+    v = f * p_c[..., 1] / p_c[..., 2] + cy
+    du, dv = u[:, 1] - u[:, 0], v[:, 1] - v[:, 0]
+    ln = torch.clamp(torch.hypot(du, dv), min=1e-6)
+    tx, ty = (du / ln)[:, None, None], (dv / ln)[:, None, None]
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float64, device=img.device),
+                            torch.arange(W, dtype=torch.float64, device=img.device),
+                            indexing="ij")
+    rx, ry = xs[None] - u[:, 0, None, None], ys[None] - v[:, 0, None, None]
+    s = rx * tx + ry * ty
+    perp = -rx * ty + ry * tx
+    on = ((s > 0) & (s < ln[:, None, None])).to(torch.float64)
+    add = (amp * on * torch.exp(-0.5 * (perp / thickness) ** 2) * keep[:, None, None]).sum(0)
+    return torch.clamp(img.double() + add, 0.0, 255.0).float()
+
+
 def _trajectory(t, rot_scale=1.0, mode="default"):
     """Analytic trajectory (f64): lateral sweep + gentle bob, looking at +z.
 
@@ -123,10 +164,12 @@ def _rot(yaw, pitch):
 
 def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=240,
                n_points=240, noise_px=0.0, imu_noise=True, rot_scale=1.0, camera="pinhole",
-               trajectory="default", wall_x=(-5.0, 5.0), device=None) -> SyntheticWorld:
+               n_lines=0, trajectory="default", wall_x=(-5.0, 5.0),
+               device=None) -> SyntheticWorld:
     """Blob-wall world seen by a stereo rig of ``camera`` model (see
     ``make_rig``).  ``trajectory``: "default" or "excursion"; ``wall_x``:
-    horizontal extent of the wall.
+    horizontal extent of the wall; ``n_lines``: bright 3D segments on the
+    wall, drawn on pinhole rigs only (``segments``).
 
     Images are rendered on ``device`` (None: the CUDA card) and returned as
     numpy arrays."""
@@ -152,6 +195,7 @@ def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=
     z = zfield.reshape(-1)[:n_points] + rng.uniform(-0.2, 0.2, len(pts2))
     pts = np.concatenate([pts2, z[:, None]], -1).astype(np.float32)
     intens = rng.uniform(80, 220, len(pts)).astype(np.float32)
+    segs = _sample_segments(rng, n_lines) if n_lines else np.zeros((0, 2, 3), np.float32)
 
     n_sub = int(round(imu_rate / fps))
     dt_imu = 1.0 / imu_rate
@@ -179,8 +223,11 @@ def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=
         R_kt = torch.as_tensor(R_k, dtype=torch.float32, device=device)
         t_kt = torch.as_tensor(t_k, dtype=torch.float32, device=device)
         imgs = [render_view(fx[c], (cx[c], cy[c]), R_kt, t_kt, rig.R_f_s[c], rig.t_f_s[c],
-                            pts_t, intens_t, width, height, model=models[c]).cpu().numpy()
-                for c in range(2)]
+                            pts_t, intens_t, width, height, model=models[c]) for c in range(2)]
+        if n_lines and camera == "pinhole":
+            imgs = [_render_segments(im, rig.R_f_s[c], rig.t_f_s[c], fx[c], cx[c], cy[c], R_k, t_k,
+                                     segs) for c, im in enumerate(imgs)]
+        imgs = [im.cpu().numpy() for im in imgs]
         if noise_px > 0:
             imgs = [im + rng.standard_normal(im.shape).astype(np.float32) * noise_px
                     for im in imgs]
@@ -204,7 +251,7 @@ def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=
     return SyntheticWorld(rig=rig, imu_params=params, frames=frames,
                           gt_R=np.stack(gt_R).astype(np.float32),
                           gt_t=np.stack(gt_t).astype(np.float32),
-                          gt_v=np.stack(gt_v).astype(np.float32), points=pts)
+                          gt_v=np.stack(gt_v).astype(np.float32), points=pts, segments=segs)
 
 
 def make_nofov_rig(width=320, height=240, lever=0.4, f=200.0, device=None):

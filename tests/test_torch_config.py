@@ -54,8 +54,10 @@ def test_preset_builds_its_port_pipeline(preset):
     carried over) and its config construct the port's class for its
     slam_mode; the other classes refuse the mode; ``_ba_opts.angular``
     follows ``optimizer`` (tests/test_configs.py::test_preset_builds_pipeline).
-    Presets that name unported keys (typed channels, multithreading) raise
-    NotImplementedError naming them."""
+    Presets that name unported keys (multithreading; typed features in the
+    mono and nofov classes) raise NotImplementedError naming them, and
+    nothing else; without them the preset builds its typed channels as the
+    JAX package dispatches them."""
     import jax
     import numpy as np
 
@@ -70,12 +72,22 @@ def test_preset_builds_its_port_pipeline(preset):
     assert type(rig.cam).__name__ == type(jrig.cam).__name__
     classes = _port_classes()
     cls = classes[MODE_CLASS[cfg.slam_mode]]
-    unported = cfg.multithreading or any(f.label.lower() != "pointxd" for f in cfg.features)
-    if unported:
-        with pytest.raises(NotImplementedError):
+    typed = any(f.label.lower() != "pointxd" or f.detector.lower() in ("csv", "cvcsv")
+                for f in cfg.features)
+    unported = {"multithreading": cfg.multithreading,
+                "features": typed and not cls.TYPED_FEATURES}
+    if any(unported.values()):
+        with pytest.raises(NotImplementedError) as err:
             cls(rig, cfg, device="cpu")
-        return
+        assert str(err.value).split(": ")[1] == ", ".join(k for k, v in unported.items() if v)
+        cfg = dataclasses.replace(cfg, multithreading=False)
+        if unported["features"]:
+            return
     slam = cls(rig, cfg, device="cpu")
+    labels = [f.label.lower() for f in cfg.features]
+    assert (slam._line_ch is not None) == ("linexd" in labels and rig.C >= 2)
+    assert len(slam.channels) == sum(lb in ("linexd", "edgeletxd", "ellipsepatternxd", "bboxxd")
+                                     for lb in labels)
     assert type(slam).__name__ == MODE_CLASS[cfg.slam_mode]
     assert slam._ba_opts.angular == cfg.optimizer.lower().startswith("angular")
     assert slam.vio == cfg.slam_mode.endswith("vio")

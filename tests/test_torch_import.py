@@ -44,6 +44,14 @@ MODULES = [
     "sadvio_tpu_torch.frontend.nofov",
     "sadvio_tpu_torch.pipeline.mono",
     "sadvio_tpu_torch.pipeline.nofov_mode",
+    "sadvio_tpu_torch.frontend.lines",
+    "sadvio_tpu_torch.frontend.edgelets",
+    "sadvio_tpu_torch.frontend.ellipses",
+    "sadvio_tpu_torch.frontend.bbox",
+    "sadvio_tpu_torch.frontend.csv_keypoints",
+    "sadvio_tpu_torch.frontend.descriptors",
+    "sadvio_tpu_torch.pipeline.channels",
+    "sadvio_tpu_torch.pipeline.line_channel",
 ]
 
 _PROBE = """

@@ -136,3 +136,22 @@ def test_nofov_world_matches(nofov_worlds):
     for c in range(2):  # both walls are seen
         assert wt.frames[0].images[c].mean() > 5.0
 
+
+
+@pytest.fixture(scope="module")
+def line_worlds():
+    """The starved line world of tests/test_line_e2e.py, 3 frames."""
+    kw = dict(seed=7, n_frames=3, width=320, height=240, n_points=20, n_lines=12,
+              imu_noise=False)
+    return jsyn.make_world(**kw), tsyn.make_world(**kw, device="cpu")
+
+
+def test_line_world_matches(line_worlds):
+    wj, wt = line_worlds
+    assert wt.segments.shape == (12, 2, 3)
+    for name in ("gt_R", "gt_t", "points", "segments"):
+        np.testing.assert_array_equal(getattr(wt, name), getattr(wj, name), err_msg=name)
+    for fj, ft in zip(wj.frames, wt.frames):
+        np.testing.assert_allclose(ft.images, fj.images, atol=0.05)
+    # the segments are drawn: far more bright pixels than the 20 blobs give
+    assert (wt.frames[0].images > 100).mean() > 0.01
