@@ -14,8 +14,10 @@ against ground truth.
     python3 chip_smoke.py --measure   # adds lk_track's cycles per phase, the
                                       # end-to-end comparison of the two KLT
                                       # engines, the stage tables, the
-                                      # kernels-per-frame count and the kernel
-                                      # counts of the long-run stages
+                                      # kernels-per-frame count, the kernel
+                                      # counts of the long-run stages and the
+                                      # entry point's frame ms with the image
+                                      # prefetch on and off
     python3 chip_smoke.py --sweep     # adds the long run at other lengths
                                       # and seeds, failures printed only
     python3 chip_smoke.py --parent DIR  # adds lk_iterate of the checkout
@@ -43,9 +45,18 @@ world of tests/test_line_e2e.py with and without lines over seven RANSAC
 seeds, ``detect_lines`` twice on one frame (bit-equal), device profiles of
 ``detect_lines`` and of the standalone line refinement; edgelet,
 coded-ellipse, provider-box and csv-keypoint runs of 40 frames each; ORB,
-BRISK and DoH on the card against the CPU.  After every phase a probe asks
-whether ``torch.profiler`` still records an ``lk_track`` launch.  No phase
-catches its own failure.
+BRISK and DoH on the card against the CPU; the EuRoC entry point: the main
+world written as a EuRoC sequence (uint8 PNGs, nanosecond stamps,
+imu0/data.csv, its dataset.yaml) and replayed by
+``sadvio_tpu_torch.run_euroc`` with configs/euroc_bimonovio at the main
+path's keys and capacities (ATE of results.csv, VIInit, vio_poses.csv,
+slam_profiler.txt, lk_track launches), a second run that saves a
+checkpoint at frame 65 and a fresh instance resumed from it (held to the
+gap between the two uninterrupted runs, at least 1e-6 m), configs/
+euroc_bimonovio_full for 40 frames with multithreading on and off (CLAHE
+through the loader), and clahe and remap on the card against the CPU.
+After every phase a probe asks whether ``torch.profiler`` still records an
+``lk_track`` launch.  No phase catches its own failure.
 
 Kernel times are device times: (a) the kernel's self time from
 ``torch.profiler``; (b) CUDA events around a replayed CUDA graph of 50
@@ -74,7 +85,7 @@ RADIUS = 5  # KLT radius: 11 x 11 patches
 LEVELS = 4
 N_FRAMES = 130  # VIInit fires and the window rolls within this run
 N_FRAMES_LEVELS = 20  # the earlier per-level engine's short path
-N_FRAMES_FRONTEND = 30  # the matcher and the epipolar runs
+N_FRAMES_FRONTEND = 20  # the matcher and the epipolar runs (30 before the EuRoC phase came in)
 # the long-run path: an excursion of 2.2 m along a 16 m wall and back
 LONG_FRAMES, LONG_SEED, LONG_POINTS = 320, 11, 640
 LONG_SWEEP = ((240, 11), (400, 11), (320, 3))  # other (frames, seed), under --sweep
@@ -187,13 +198,19 @@ def _profile(fn, n=1, required=True):
     return out, wall
 
 
-def _kernel_self_ms(table, name, calls):
+def _kernel_self_ms(table, name, calls, launches=None):
     """Self device ms per call of the kernels whose name contains `name`;
-    None for an empty table (the profiler recorded no device time)."""
+    None for an empty table (the profiler recorded no device time), and for
+    a table that holds fewer than the `launches` expected (it recorded part
+    of them)."""
     if not table:
         return None
     hit = [(c, us) for k, (c, us) in table.items() if name in k]
     _require(hit, f"profiler saw no kernel named {name}")
+    seen = sum(c for c, _ in hit)
+    if launches is not None and seen != launches:
+        print(f"profiler: {seen} of {launches} {name} launches recorded: a partial profile")
+        return None
     return sum(us for _, us in hit) / calls / 1e3
 
 
@@ -354,7 +371,7 @@ def phase_kernel(frame, device):
         row = {"level": lvl, "H": img1.shape[0], "W": img1.shape[1], "iters": iters,
                "good": int(g.sum()), "max_abs_err_uv": d_uv, "max_abs_err_err": d_err,
                "ms": float(np.mean(ms_graph)),
-               "profiler_ms": _kernel_self_ms(table, "lk_iterate_kernel", 20),
+               "profiler_ms": _kernel_self_ms(table, "lk_iterate_kernel", 20, 20),
                "one_launch_ms": _loop_ms(run_k, n=1, warmup=3),
                "host_us": _host_us(run_k), "plain_ms": float(np.mean(ms_r)),
                **bound_lk_iterate(img1, uv, T, gx, gy, nrm, iters)}
@@ -497,7 +514,7 @@ def _track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels,
     tab_l, _ = _profile(run_l, n=n_prof, required=profiler_required)
     row = {"shape": shape, "max_abs_err_uv": worst["uv"], "max_abs_err_err": worst["err"],
            "ms": float(np.mean(ms_k)),
-           "profiler_ms": _kernel_self_ms(tab_k, "lk_track_kernel", n_prof),
+           "profiler_ms": _kernel_self_ms(tab_k, "lk_track_kernel", n_prof, n_prof),
            "python_loop_ms": _loop_ms(run_k), "host_us": _host_us(run_k),
            "plain_ms": float(np.mean(ms_r)),
            "levels_python_loop_ms": float(np.mean(ms_l)),
@@ -507,6 +524,11 @@ def _track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels,
            "levels_kernels": sum(c for c, _ in tab_l.values()) / n_prof if tab_l else None,
            "levels_host_us": _host_us(run_l, n=20),
            **bound_lk_track(pyr0, pyr1, uv0, init, valid0, warp, bwd, levels)}
+    if not profiler_required:
+        # late in the run this process's profiler records no device activity,
+        # or part of it (PERF.md §6): profile the same call in a fresh process
+        row["profiler_ms"] = _fresh_process_profile_ms(shape, (pyr0, pyr1, uv0, init, valid0,
+                                                               warp), kw, n_prof)
     H, W = pyr0[0].shape
     print(f"kernel lk_track: {shape} track {H}x{W} N={N} S={2 * RADIUS + 1} levels={levels} "
           f"| fused: device {row['ms']:.5f} ms (graph of {GRAPH_LAUNCHES}), profiler self "
@@ -518,6 +540,47 @@ def _track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels,
           f"| plain {row['plain_ms']:.2f} ms | bound {row['bound_ms']:.5f} ms by "
           f"{row['bound_by']} ({row['bytes']} B, {row['flop']} FLOP at the cap)")
     return row
+
+
+PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".smoke_profile")
+
+
+def _fresh_process_profile_ms(shape, args, kw, n):
+    """lk_track's profiler self time per call, taken in a new interpreter on
+    the same inputs (saved under the git-ignored .smoke_profile/, removed
+    after): ms, or None if that profile records no device time either."""
+    import shutil
+
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    path = os.path.join(PROFILE_DIR, f"{shape.replace(' ', '_')}.pt")
+    torch.save({"args": [[t.cpu() for t in a] if isinstance(a, (tuple, list)) else a.cpu()
+                         for a in args], "kw": kw, "n": n}, path)
+    try:
+        proc = subprocess.run([sys.executable, "-c", f"import chip_smoke as c; "
+                               f"c._profile_saved({path!r})"], cwd=REPO, capture_output=True,
+                              text=True, timeout=300)
+    finally:
+        shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    _require(proc.returncode == 0, f"fresh-process profile of {shape}: {proc.stderr[-2000:]}")
+    ms = json.loads(proc.stdout.strip().splitlines()[-1])["profiler_ms"]
+    print(f"kernel lk_track: {shape} track profiled in a fresh process: self "
+          f"{_ms(ms)} per call ({n} calls)")
+    return ms
+
+
+def _profile_saved(path):
+    """Entry of the fresh process: profile n lk_track calls on the saved
+    inputs; prints {"profiler_ms": ...} as its last line."""
+    import sadvio_tpu_torch  # noqa: F401  (pins full fp32)
+    from sadvio_tpu_torch.ops import klt_kernel
+
+    d = torch.load(path)
+    dev = torch.device("cuda")
+    to = lambda a: tuple(t.to(dev) for t in a) if isinstance(a, list) else a.to(dev)
+    pyr0, pyr1, uv0, init, valid0, warp = [to(a) for a in d["args"]]
+    tab, _ = _profile(lambda: klt_kernel.lk_track(pyr0, pyr1, uv0, init, valid0, warp,
+                                                  **d["kw"]), n=d["n"], required=False)
+    print(json.dumps({"profiler_ms": _kernel_self_ms(tab, "lk_track_kernel", d["n"], d["n"])}))
 
 
 MAIN_CAPS = dict(K=11, L=512, P=48, pyr_levels=LEVELS, klt_radius=RADIUS)
@@ -1395,8 +1458,8 @@ def phase_measure(world, frames, device):
 # ellipse patterns, provider boxes, csv keypoints, the descriptor zoo
 # ----------------------------------------------------------------------
 
-# cuts: multithreading 0 (the second-device BA split is not ported) and the
-# keyframe parallax 4.0 -> 1.0 deg: at 4.0 every keyframe after the third of
+# cuts: multithreading 0 (phase_euroc runs the preset with it, on and off)
+# and the keyframe parallax 4.0 -> 1.0 deg: at 4.0 every keyframe after the third of
 # this world comes from the 1 s timer, 21 frames apart, and in 130 frames the
 # 13-slot window neither rolls nor reaches VIInit (a CPU run at 376x240: 9
 # keyframes); the monovio run cuts it the same way
@@ -1802,6 +1865,202 @@ def phase_profiler_probe(after, frames, device, log):
 
 
 
+# ----------------------------------------------------------------------
+# the EuRoC entry point (sadvio_tpu_torch.run_euroc) on the main world on disk
+# ----------------------------------------------------------------------
+
+EUROC_DIR = os.path.join(REPO, ".smoke_euroc")  # git-ignored; removed after the phase
+EUROC_T0 = 1403636579.0  # the first frame's stamp: EuRoC's epoch scale (s)
+EUROC_SAVE_AT = 65  # frames before the checkpoint
+EUROC_FULL_PRESET, EUROC_FULL_FRAMES = "euroc_bimonovio_full", 40
+EUROC_RESUME_FLOOR_M = 1e-6
+EUROC_IMG_TOL = 1e-3  # clahe and remap, card against CPU (float32 either way)
+# configs/euroc_bimonovio with the main path's keyframe keys and capacities
+EUROC_MAIN_KEYS = dict(max_kf_number=10, min_lmk_number=40, max_movement_parallax=1.0,
+                       min_movement_parallax=0.02,
+                       capacities=dict(L=N_FEATURES, P=48, pyr_levels=LEVELS, klt_radius=RADIUS))
+
+
+def _euroc_config(preset, name, dataset_yaml, **keys):
+    """A config directory: configs/<preset>/config.yaml with ``keys``
+    replaced, beside the sequence's dataset.yaml."""
+    import shutil
+
+    import yaml
+
+    with open(os.path.join(REPO, "configs", preset, "config.yaml")) as f:
+        y = yaml.safe_load(f)
+    y.update(keys)
+    d = os.path.join(EUROC_DIR, name)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "config.yaml"), "w") as f:
+        yaml.safe_dump(y, f)
+    shutil.copy(dataset_yaml, os.path.join(d, "dataset.yaml"))
+    return d
+
+
+def _positions(slam):
+    return np.asarray([t for _, _, t in slam.traj])
+
+
+def _euroc_build(cfg_dir, data_dir, device):
+    """The entry point's building blocks: (slam, provider, loader)."""
+    from sadvio_tpu_torch import run_euroc
+    from sadvio_tpu_torch.pipeline import euroc
+
+    cfg, ds = run_euroc.load_configs(cfg_dir)
+    provider, loader = run_euroc.open_provider(data_dir, ds, cfg.contrast_enhancer, device)
+    slam = run_euroc.build_slam(cfg, euroc.rig_from_dataset(ds, device),
+                                run_euroc.imu_params_of(ds), device)
+    return slam, provider, loader
+
+
+def _timed_frames(slam):
+    """Wall ms of each process_frame call (the frame's health copy is its
+    sync), filled as the run goes."""
+    ms, orig = [], slam.process_frame
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    slam.process_frame = timed
+    return ms
+
+
+def phase_euroc(world, frames, device, measure=False):
+    """The main world as a EuRoC sequence on disk, replayed through the
+    entry point; a checkpoint resume; the full preset with multithreading
+    and CLAHE; clahe and remap on the card against the CPU."""
+    import itertools
+    import shutil
+
+    from sadvio_tpu_torch import run_euroc
+    from sadvio_tpu_torch.ops import klt_kernel
+    from sadvio_tpu_torch.pipeline import euroc, synthetic
+    from sadvio_tpu_torch.pipeline.config import load_dataset_config
+    from sadvio_tpu_torch.utils import checkpoint
+
+    shutil.rmtree(EUROC_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    data = euroc.write_sequence(os.path.join(EUROC_DIR, "seq"), frames, t0=EUROC_T0)
+    ds_yaml = os.path.join(EUROC_DIR, "dataset.yaml")
+    euroc.write_dataset_yaml(ds_yaml, world.rig, world.imu_params)
+    cfg_main = _euroc_config("euroc_bimonovio", "main", ds_yaml, **EUROC_MAIN_KEYS)
+    print(f"euroc: wrote {len(frames)} stereo frames at {frames[0].images.shape[2]}x"
+          f"{frames[0].images.shape[1]} (uint8 PNG, ns stamps from {EUROC_T0:.0f} s) and "
+          f"imu0/data.csv in {time.perf_counter() - t0:.1f} s")
+    stamps = EUROC_T0 + np.asarray([f.ts for f in frames])
+
+    # 1. the entry point, as `python -m sadvio_tpu_torch.run_euroc` runs it
+    log = os.path.join(EUROC_DIR, "log_slam")
+    klt_kernel.lk_iterate.launches = 0
+    klt_kernel.lk_track.launches = 0
+    klt_kernel.lk_track.launches_by_levels = {}
+    slam_a, n, loader, run_s = run_euroc.replay(cfg_main, data, device=device, profile=True,
+                                                log_dir=log)
+    launches = klt_kernel.lk_track.launches
+    _require(klt_kernel.lk_iterate.launches == 0, "the entry point launched the per-level kernel")
+    _require(n == len(frames), f"the loader gave {n} of {len(frames)} frames")
+    res = np.loadtxt(os.path.join(log, "results.csv"), delimiter=",", ndmin=2)
+    idx = [int(np.argmin(np.abs(stamps - ts))) for ts in res[:, 0]]
+    _require(np.abs(stamps[idx] - res[:, 0]).max() < 1e-6, "keyframe stamps off the sequence's")
+    ate = synthetic.ate_rmse(res[:, [4, 8, 12]], world.gt_t[idx])
+    vio = np.loadtxt(os.path.join(log, "vio_poses.csv"), delimiter=",", ndmin=2)
+    prof = open(os.path.join(log, "slam_profiler.txt")).read()
+    expected = (n - 1) + len(slam_a.kf_traj)
+    print(f"euroc: entry point: {loader} loader, {n} frames in {run_s:.1f} s, keyframes "
+          f"{len(res)}, rolls {len(slam_a.archived_kf)}, vi_initialized "
+          f"{slam_a.vi_initialized}, results.csv ATE {ate * 1e3:.3f} mm over {len(res)} "
+          f"keyframes, vio_poses.csv {vio.shape[0]} rows x {vio.shape[1]} columns, median frame "
+          f"{slam_a._prof.avg_ms('frame_total'):.2f} ms (profiled: every stage synchronised), "
+          f"lk_track launches {launches} (frames - 1 + keyframes = {expected})")
+    _require(ate < ATE_TOL_M, f"entry point ATE {ate:.4f} m")
+    _require(slam_a.vi_initialized, "VIInit never fired on the entry point")
+    _require(slam_a.n_resets == 0, "the entry point reset")
+    # the bootstrap frame has no VIO row, as in the JAX package
+    _require(vio.shape == (n - 1, 13), f"vio_poses.csv is {vio.shape}")
+    _require("frame_total" in prof, "slam_profiler.txt lacks frame_total")
+    _require(launches == expected, f"{launches} lk_track launches for {expected} tracks")
+
+    # 2. a second uninterrupted run (saving a checkpoint at EUROC_SAVE_AT),
+    # and a fresh instance resumed from the checkpoint
+    slam_b, provider, _ = _euroc_build(cfg_main, data, device)
+    it = provider.frames()
+    slam_b.drive(itertools.islice(it, EUROC_SAVE_AT))
+    ckpt = os.path.join(EUROC_DIR, "state.npz")
+    checkpoint.save_slam(ckpt, slam_b)
+    kf_pyr = slam_b.kf_pyr  # the tracking template is not in the file
+    slam_b.drive(it)
+    slam_c, provider, _ = _euroc_build(cfg_main, data, device)
+    checkpoint.load_slam(ckpt, slam_c)
+    slam_c.kf_pyr = kf_pyr
+    slam_c.drive(itertools.islice(provider.frames(), EUROC_SAVE_AT, None))
+    gap = float(np.abs(_positions(slam_a) - _positions(slam_b)).max())
+    tol = max(gap, EUROC_RESUME_FLOOR_M)
+    resume = float(np.abs(_positions(slam_c) - _positions(slam_b)).max())
+    print(f"euroc: two uninterrupted runs part by {gap:.3e} m at most; the run resumed from "
+          f"the frame-{EUROC_SAVE_AT} checkpoint ({os.path.getsize(ckpt)} B) parts from its "
+          f"own by {resume:.3e} m (tolerance {tol:.3e} m: the gap, at least "
+          f"{EUROC_RESUME_FLOOR_M:.0e} m)")
+    _require(len(slam_c.traj) == len(frames), "the resumed run lost frames")
+    _require(resume <= tol, f"resume parts by {resume:.3e} m > {tol:.3e} m")
+
+    # 3. the full preset: multithreading on (the back end on a second
+    # stream) against off, CLAHE through the loader
+    ds_full = {}
+    for mt in (1, 0):
+        d = _euroc_config(EUROC_FULL_PRESET, f"full_mt{mt}", ds_yaml, multithreading=mt)
+        slam, n_f, loader_f, s_f = run_euroc.replay(
+            d, data, EUROC_FULL_FRAMES, device=device, log_dir=os.path.join(d, "log_slam"))
+        ds_full[mt] = slam
+        print(f"euroc: {EUROC_FULL_PRESET} multithreading={mt}: {loader_f} loader, "
+              f"contrast_enhancer={slam.cfg.contrast_enhancer}, {n_f} frames in {s_f:.1f} s, "
+              f"keyframes {len(slam.kf_traj)}, back-end steps on the side stream "
+              f"{slam.backend_exec.steps if slam.backend_exec else 0}")
+    _require(ds_full[1].backend_exec is not None and ds_full[1].backend_exec.steps > 0,
+             "multithreading never used the side stream")
+    _require(ds_full[1].cfg.contrast_enhancer == "clahe", "the full preset lost its CLAHE")
+    mt_gap = float(np.abs(_positions(ds_full[1]) - _positions(ds_full[0])).max())
+    print(f"euroc: multithreading on against off: positions part by {mt_gap:.3e} m "
+          f"(tolerance {tol:.3e} m)")
+    _require(mt_gap <= tol, f"multithreading parts by {mt_gap:.3e} m")
+
+    # 4. clahe and remap of one frame, card against CPU
+    calib = load_dataset_config(os.path.join(REPO, "configs", "euroc_bimonovio",
+                                             "dataset.yaml")).cameras[0]
+    grid = torch.as_tensor(euroc.undistort_grid(calib)[0])
+    img = torch.as_tensor(frames[0].images[0]).float()
+    rows = {}
+    for name, fn in (("clahe", lambda x, g: euroc.clahe(x)),
+                     ("remap", lambda x, g: euroc.remap(x, g))):
+        cpu = fn(img, grid)
+        gpu = fn(img.to(device), grid.to(device))
+        err = float((gpu.cpu() - cpu).abs().max())
+        rows[name] = err
+        print(f"euroc: {name} on one {tuple(img.shape)} frame, card against CPU: max abs "
+              f"{err:.3e} (tolerance {EUROC_IMG_TOL:.0e} intensity)")
+        _require(err <= EUROC_IMG_TOL, f"{name}: card against CPU {err:.3e}")
+
+    if measure:
+        # 5. the prefetch: median process_frame ms with it on and off, in turns
+        ms = {True: [], False: []}
+        for on in (False, True, True, False):
+            slam, provider, _ = _euroc_build(cfg_main, data, device)
+            slam.prefetch = on
+            times = _timed_frames(slam)
+            slam.drive(provider.frames())
+            ms[on].append(float(np.median(times)))
+        print(f"euroc: median process_frame ms, prefetch on {ms[True]} / off {ms[False]} "
+              f"(in turns off, on, on, off; {len(frames)} frames each)")
+    shutil.rmtree(EUROC_DIR, ignore_errors=True)
+    print(f"euroc: phase time {time.perf_counter() - t0:.1f} s")
+    return {"lk_track": launches, "frames": n, "loader": loader, "gap": gap, "resume": resume,
+            "mt_gap": mt_gap, "img_err": rows}
+
+
 SHAPE_KEYS = ("ms", "profiler_ms", "host_us", "plain_ms", "bound_ms", "bound_by", "max_abs_err_uv",
               "max_abs_err_err")
 
@@ -1819,7 +2078,13 @@ def main():
     phase_build()
     world, frames = make_world(device, N_FRAMES)
     probes = []
-    probe = lambda after: phase_profiler_probe(after, frames, device, probes)
+    t_phase = [time.perf_counter()]
+
+    def probe(after):
+        print(f"phase time: {after} {time.perf_counter() - t_phase[0]:.1f} s")
+        phase_profiler_probe(after, frames, device, probes)
+        t_phase[0] = time.perf_counter()
+
     it_rows = phase_kernel(frames[0], device)
     probe("phase_kernel")
     tr_rows = phase_track_kernel(frames, device)
@@ -1851,6 +2116,9 @@ def main():
     chans = phase_channels(device, probe)
     probe("phase_channels")
     desc = phase_descriptors(frames[0], device)
+    probe("phase_descriptors")
+    euroc_rec = phase_euroc(world, frames, device, measure=measure)
+    probe("phase_euroc")
     lost = [after for after, seen, _ in probes if not seen]
     print(f"profiler probe: lk_track recorded after {sum(seen for _, seen, _ in probes)} of "
           f"{len(probes)} phases; first phase after which it was not: "
@@ -1899,6 +2167,7 @@ def main():
         "launches_exotic_runs": {k: r["lk_track"] for k, r in exotic.items()},
         "launches_line_run": lines["lk_track"],
         "launches_channel_runs": {k: r["lk_track"] for k, r in chans.items()},
+        "launches_euroc_run": euroc_rec["lk_track"],
         "mono_frame": {k: mode_rows["mono_frame"][k] for k in SHAPE_KEYS},
         "nofov_refine": {k: mode_rows["nofov_refine"][k]
                          for k in (*SHAPE_KEYS, "rotation_deg")},

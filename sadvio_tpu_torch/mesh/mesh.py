@@ -2,9 +2,11 @@
 
 Port of ``sadvio_tpu/mesh/mesh.py``.  Division of labour:
 
-* Host: the Delaunay *topology only* (``scipy.spatial.Delaunay`` on the
-  projected 2D landmark positions) -> a fixed-capacity triangle index
-  array.  It is host work in the JAX package too.
+* Host: the Delaunay *topology only* (the native Bowyer-Watson
+  triangulation of ``native/delaunay.cpp`` on the projected 2D landmark
+  positions, or ``scipy.spatial.Delaunay`` without the native library) ->
+  a fixed-capacity triangle index array.  It is host work in the JAX
+  package too.
 * Device: every filter and the dense ray cast are batched tensor ops on the
   caller's device: triangles are rows of a (T,3) slot-index tensor, the
   sample grid is a dense lattice, and the per-pixel "nearest covering
@@ -41,20 +43,26 @@ class MeshConfig(NamedTuple):
 def delaunay_triangles(uv: np.ndarray, valid: np.ndarray, cap: int):
     """2D Delaunay over the valid projected landmarks -> (cap,3) slot indices.
 
-    Host-side topology by ``scipy.spatial.Delaunay``.  Triangles beyond
-    ``cap`` are cut.  Returns (tri (cap,3) int64 landmark-slot indices,
-    mask (cap,) bool, n_total: triangles before the cut)."""
+    Host-side topology by the native triangulation, as in the JAX package,
+    or by ``scipy.spatial.Delaunay`` without the native library.  Triangles
+    beyond ``cap`` are cut.  Returns (tri (cap,3) int64 landmark-slot
+    indices, mask (cap,) bool, n_total: triangles before the cut)."""
+    from sadvio_tpu_torch.pipeline.native_io import native_delaunay
+
     idx = np.flatnonzero(np.asarray(valid))
     tri_out = np.zeros((cap, 3), np.int64)
     mask_out = np.zeros((cap,), bool)
     if idx.size < 3:
         return tri_out, mask_out, 0
-    from scipy.spatial import Delaunay, QhullError
+    pts = np.asarray(uv)[idx]
+    tris = native_delaunay(pts)
+    if tris is None:
+        from scipy.spatial import Delaunay, QhullError
 
-    try:
-        tris = Delaunay(np.asarray(uv)[idx]).simplices
-    except (QhullError, ValueError):
-        return tri_out, mask_out, 0
+        try:
+            tris = Delaunay(pts).simplices
+        except (QhullError, ValueError):
+            return tri_out, mask_out, 0
     simplices = idx[tris]  # back to landmark-slot space
     n = min(len(simplices), cap)
     tri_out[:n] = simplices[:n]

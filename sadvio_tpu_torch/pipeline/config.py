@@ -9,7 +9,9 @@ ros/config/dataset/eth.yaml).
 Here both levels are frozen dataclasses loadable from the same YAML layouts;
 capacities (static array sizes) are a third group.  This module is the
 port's own copy of ``sadvio_tpu/pipeline/config.py``: the same schema and
-parser, importable without JAX.
+parser, importable without JAX.  It reads one key the JAX package's loader
+ignores: an optional ``capacities:`` mapping (``L``, ``P``, ``N_imu``,
+``pyr_levels``, ``klt_radius``; ``K`` always follows ``max_kf_number``).
 """
 
 from __future__ import annotations
@@ -192,8 +194,10 @@ def load_slam_config(path: str) -> SLAMConfig:
     if feats:
         kw["features"] = tuple(feats)
     cfg = SLAMConfig(**kw)
-    caps = Capacities(K=cfg.max_kf_number + 1)
-    return dataclasses.replace(cfg, caps=caps)
+    # optional port key, ignored by the JAX package's loader: the array
+    # capacities other than K (L, P, N_imu, pyr_levels, klt_radius)
+    caps = {k: int(v) for k, v in (y.get("capacities") or {}).items() if k != "K"}
+    return dataclasses.replace(cfg, caps=Capacities(K=cfg.max_kf_number + 1, **caps))
 
 
 def load_dataset_config(path: str) -> DatasetConfig:

@@ -37,6 +37,7 @@ class MonoSLAM(StereoSLAM):
 
     MODES = ("mono", "monovio")
     TYPED_FEATURES = False  # the typed channels are ported in the stereo class only
+    PROFILE_BOOTSTRAP = False  # as in the JAX package, the bootstrap frames are not timed
 
     def __init__(self, rig, config, imu_params=None, seed=0, device=None,
                  boot_parallax_deg: float = 1.0, vio_init_kfs: int = 6):

@@ -42,14 +42,17 @@ Subclass hooks: ``_bootstrap`` (the first keyframe, before
 ``initialized``), ``_insert_kf``, ``vio_init_kfs``, ``_vi_opt_scale`` (VIInit
 solves the scale too) and ``_last_pyr`` (the latest frame's pyramids).
 ``optimizer: angular*`` switches the window BA to the bearing-vector
-residual.  Config keys for parts that are not ported yet raise
-NotImplementedError: ``async_health``, ``multithreading``, and typed
-features in the mono and nofov classes (``TYPED_FEATURES``).
+residual.  ``multithreading`` runs the window BA on a second CUDA stream
+(``parallel/pipeline_parallel.py``).  ``run(frames, log_dir, profile)``
+times the stages and writes ``log_slam/`` (``write_logs``).  Config keys for
+parts that are not ported yet raise NotImplementedError: ``async_health``,
+and typed features in the mono and nofov classes (``TYPED_FEATURES``).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -66,10 +69,12 @@ from sadvio_tpu_torch.frontend import (
 )
 from sadvio_tpu_torch.mesh.mesh import MeshConfig, Mesher
 from sadvio_tpu_torch.models import cameras, imu as imu_mod
+from sadvio_tpu_torch.parallel.pipeline_parallel import BackendExecutor
 from sadvio_tpu_torch.pipeline.channels import BBoxChannel, EdgeletChannel, EllipseChannel
 from sadvio_tpu_torch.pipeline.config import SLAMConfig
 from sadvio_tpu_torch.pipeline.line_channel import LineChannel
 from sadvio_tpu_torch.utils import geometry as geo
+from sadvio_tpu_torch.utils.profiler import Profiler, wait_for
 from sadvio_tpu_torch.utils.struct import Struct, entry_device, tree_map
 
 
@@ -100,7 +105,6 @@ def _check_config(cfg: SLAMConfig, modes, typed_features: bool):
     todo = {
         "slam_mode": cfg.slam_mode not in modes,
         "async_health": cfg.async_health,
-        "multithreading": cfg.multithreading,
         "tracker": cfg.tracker not in ("klt", "matcher"),
         "pose_estimator": not cfg.pose_estimator.lower().startswith(("pnp", "epipolar")),
         "features": not typed_features and any(
@@ -132,6 +136,7 @@ class StereoSLAM:
 
     MODES = ("bimono", "bimonovio")  # the slam_mode values this class runs
     TYPED_FEATURES = True  # features_handled beyond plain pointxd are ported here
+    PROFILE_BOOTSTRAP = True  # run(profile=True) times the bootstrap frames' stages too
 
     def __init__(self, rig: Rig, config: SLAMConfig, imu_params=None, seed=0, device=None):
         _check_config(config, self.MODES, self.TYPED_FEATURES)
@@ -145,6 +150,10 @@ class StereoSLAM:
         self.C = rig.C
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
+        # the JAX package's PRNG key for this seed (jax.random.PRNGKey): the
+        # port draws from ``gen``; the key is only a checkpoint leaf, carried
+        # through unchanged so the JAX reader finds it
+        self.key = np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
         self._pre_id = imu_mod.Preintegration.identity(device=self.device)
         # optimizer "angular*": the bearing-vector residual (fisheye, omni)
         self._ba_opts = ba.BAOptions(iters=config.ba_iterations, sigma_px=1.0,
@@ -157,6 +166,18 @@ class StereoSLAM:
         self.n_resets = 0
         self.traj = []  # (ts, R, t) at frame rate, host numpy
         self.kf_traj = []
+        # frame-rate VIO rows (ts, t, v, ba, bg), the vio_poses.csv layout;
+        # ba and bg are the host copies refreshed at each keyframe
+        self.vio_log = []
+        self._last_health = None  # (ts, health) of the last ingested frame
+        # drive(): upload the next frame's images during this one; off, as it
+        # did not pay on the card (PERF.md §5)
+        self.prefetch = False
+        self._prefetched = None  # the next frame's device images, from process_frame
+        self._pins = [None, None]  # two pinned upload buffers, used in turn
+        self._prof = None  # the Profiler of a run(profile=True)
+        # multithreading: the window BA on a second CUDA stream
+        self.backend_exec = BackendExecutor(self.device) if config.multithreading else None
         self._lc_diag = (0, 0, False)  # (candidates, inliers, pnp_ok) of the last closure try
         # archive of the keyframes rolled out of the window, and the
         # pose-graph edges between them; timestamps stay host float64
@@ -231,6 +252,8 @@ class StereoSLAM:
         self.vi_initialized = not self.vio
         self.successive_fails = 0
         self._have_priors = False
+        self._ba_h = np.zeros(3)
+        self._bg_h = np.zeros(3)
 
     # ------------------------------------------------------------------
     # stages
@@ -615,7 +638,11 @@ class StereoSLAM:
         pnp_ok = bool(health_h[0] > 0.5)
         self.successive_fails = 0 if pnp_ok else self.successive_fails + 1
         self._cov_h = health_h[19:55].reshape(6, 6).copy()
-        self.traj.append((ts, health_h[4:13].reshape(3, 3).copy(), health_h[13:16].copy()))
+        t_h = health_h[13:16].copy()
+        self.traj.append((ts, health_h[4:13].reshape(3, 3).copy(), t_h))
+        if self.vio:
+            self.vio_log.append((ts, *t_h, *health_h[16:19], *self._ba_h, *self._bg_h))
+        self._last_health = (ts, health_h)
 
     def _bootstrap(self, frame, pyr_new, out: dict) -> dict:
         """The first keyframe (after a reset too): a stereo keyframe at the
@@ -667,19 +694,64 @@ class StereoSLAM:
             out.update(self._line_ch.on_keyframe_pre_ba(pyr_new[0][0], pyr_new[1][0], R0, t0, 0))
         return out
 
-    def process_frame(self, frame) -> dict:
-        """One frame of the rig (+ the IMU samples since the previous frame)."""
+    def _upload_images(self, frame):
+        """Host-to-device copy of ``frame.images`` in the provider's dtype
+        (uint8 from a recorded sequence; float renders are shipped exactly).
+        On the card the copy goes through one of two pinned host buffers,
+        used in turn, with ``non_blocking=True``: it overlaps the work queued
+        before it, and a buffer is refilled only once the event recorded
+        behind its previous copy has fired."""
+        imgs = np.ascontiguousarray(frame.images)
+        if self.device.type != "cuda":
+            return torch.as_tensor(imgs.copy(), device=self.device)
+        self._pins = self._pins[1:] + self._pins[:1]
+        buf, done = self._pins[0] or (None, None)
+        if done is not None:
+            done.synchronize()  # the copy that last read this buffer has finished
+        if buf is None or tuple(buf.shape) != imgs.shape or buf.numpy().dtype != imgs.dtype:
+            buf = torch.from_numpy(imgs).pin_memory()
+        else:
+            buf.numpy()[...] = imgs
+        out = buf.to(self.device, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._pins[0] = (buf, done)
+        return out
+
+    def process_frame(self, frame, images_dev=None, prefetch_frame=None) -> dict:
+        """One frame of the rig (+ the IMU samples since the previous frame).
+
+        images_dev: the frame's images already on the device (from the
+        previous call's prefetch).  prefetch_frame: the next frame, whose
+        images are uploaded after this frame's IMU batch, so the copy runs
+        during this frame's work; the device copy is left in
+        ``self._prefetched``.  Under ``run(profile=True)`` every stage is
+        timed to the end of its device work, which serializes the loop."""
         dev = self.device
+        prof = self._prof if (self.initialized or self.PROFILE_BOOTSTRAP) else None
         if self.vio:
+            if prof:
+                prof.tic()
             self._accumulate_imu(frame)
-        images = torch.as_tensor(np.array(frame.images), device=dev)
-        pyr_new = self._pyramids(images)
+            if prof:
+                prof.toc("imu_preint", block=self.pre_cur.dp)
+        if images_dev is None:
+            images_dev = self._upload_images(frame)
+        self._prefetched = (self._upload_images(prefetch_frame) if prefetch_frame is not None
+                            else None)
+        if prof:
+            prof.tic()
+        pyr_new = self._pyramids(images_dev)
+        if prof:
+            prof.toc("pyramids", block=pyr_new[0][0])
         out = {"ts": frame.ts, "is_kf": False, "ok": True}
         self._last_pyr = pyr_new
         if not self.initialized:
             return self._bootstrap(frame, pyr_new, out)
 
         R_pred, t_pred, v_pred = self._predict_pose(frame)
+        if prof:
+            prof.tic()
         self.tracks, R_new, t_new, health, dR_cv, dt_cv = self._frontend(
             self.kf_pyr, pyr_new, self.tracks, self.window, R_pred, t_pred, v_pred,
             self.R_cur, self.t_cur, kf_tmpl=self.kf_tmpl,
@@ -687,6 +759,8 @@ class StereoSLAM:
             pre_cov=self.pre_cur.cov if self.vio else None)
         health_h = health.cpu().numpy()  # the frame's one device-to-host copy
         self._ingest_health(frame.ts, health_h)
+        if prof:
+            prof.toc("track_predict_filter")  # the health copy waited for it
         self.dT = (dR_cv, dt_cv)
         self.R_cur, self.t_cur, self.v_cur = R_new, t_new, v_pred
         pnp_ok_h = bool(health_h[0] > 0.5)
@@ -715,6 +789,7 @@ class StereoSLAM:
         K = self.caps.K
         n_ovf = torch.zeros((), dtype=torch.int64, device=dev)
         degen = torch.zeros((), dtype=torch.bool, device=dev)
+        did_marg = False
         if self.n_kf >= K:
             # archive the leaving keyframe; with pose_graph, condense its
             # links to the next keyframe into a relative-pose edge.  Pose
@@ -722,6 +797,8 @@ class StereoSLAM:
             # the host mirror
             vio_now = self.vio and self.vi_initialized
             pose0 = [self.window.R[0].reshape(-1), self.window.t[0]]
+            if prof and self.cfg.pose_graph:
+                prof.tic()
             if self.cfg.pose_graph:
                 dx_e, inf_e, n_sh = marg.marginalize_relative(
                     self.window, self.obs, self.rig, self.imu, self._ba_opts, vio=vio_now)
@@ -733,6 +810,10 @@ class StereoSLAM:
                                               self.kf_cov[1])
                 self.pose_graph_edges.append((self.kf_ts[0], self.kf_ts[1], pk0[12:18].copy(),
                                               inf_np))
+            if prof and self.cfg.pose_graph:
+                prof.toc("nfr_edge")
+            if prof:
+                prof.tic()
             mr = self._marg_roll(self.window, self.obs, self.imu, self.priors, self.tracks,
                                  vio_now, gm=self.global_map_state, lmk_desc=self.lmk_desc,
                                  arch_idx=len(self.archived_kf) - 1)
@@ -741,6 +822,9 @@ class StereoSLAM:
                  self.global_map_state, n_ovf, degen) = mr
             else:
                 self.window, self.obs, self.imu, self.priors, self.tracks, n_ovf, degen = mr
+            if prof:
+                prof.toc("marginalization", block=self.window.R)
+            did_marg = True
             if self.cfg.marginalization:
                 self._have_priors = True
             if self._line_ch is not None:
@@ -750,6 +834,8 @@ class StereoSLAM:
             self.n_kf = K - 1
             self._maybe_compact_archive()
         slot = self.n_kf
+        if prof:
+            prof.tic()
         gap_ok = (not self.kf_ts) or (frame.ts - self.kf_ts[-1]) <= 1.0
         ins = self._insert_kf(
             pyr_new, self.tracks, self.window, self.obs, self.imu, self.pre_cur,
@@ -767,23 +853,39 @@ class StereoSLAM:
         self.pre_cur = self._pre_id.replace(ba_lin=self.window.ba[slot],
                                             bg_lin=self.window.bg[slot])
         self._imu_n = 0
+        if prof:
+            # detection, stereo track, triangulation and the template cache
+            prof.toc("detect_lmk_init", block=self.tracks.uv)
 
         # the line channel detects and associates at the new keyframe before
         # the BA, and its lines enter the BA
         ba_lines = None
         if self._line_ch is not None:
+            if prof:
+                prof.tic()
             out.update(self._line_ch.on_keyframe_pre_ba(pyr_new[0][0], pyr_new[1][0], R_new,
                                                         t_new, slot))
             ba_lines = self._line_ch.ba_block()
+            if prof:
+                prof.toc("line_channel", block=ba_lines.ends)
         fixed_n = 1 if not self._have_priors else 0
         fixed_n = max(fixed_n, self.cfg.fixed_frame_number if self.n_kf > 1 else 1)
         # vision-only window BA until VIInit has run
         imu_for_ba = (self.imu if self.vi_initialized else
                       self.imu.replace(mask=torch.zeros_like(self.imu.mask)))
-        self.window, self.obs, stats = self._backend(self.window, self.obs, imu_for_ba,
-                                                     self.priors, fixed_n, ba_lines)
+        if prof:
+            prof.tic()
+        if self.backend_exec is not None:
+            self.backend_exec.submit_fn(self._backend, self.window, self.obs, imu_for_ba,
+                                        self.priors, fixed_n, ba_lines)
+            self.window, self.obs, stats = self.backend_exec.collect()
+        else:
+            self.window, self.obs, stats = self._backend(self.window, self.obs, imu_for_ba,
+                                                         self.priors, fixed_n, ba_lines)
         if ba_lines is not None:
             self._line_ch.apply_ba(stats["line_ends"], stats["line_obs_mask"])
+        if prof:
+            prof.toc("window_opt", block=self.window.R)
         self.R_cur = self.window.R[slot]
         self.t_cur = self.window.t[slot]
         self.v_cur = self.window.v[slot]
@@ -797,7 +899,12 @@ class StereoSLAM:
             parts.append(gm_counts.float())
         pk = torch.cat(parts).cpu().numpy()  # the keyframe's one state copy
         self.kf_traj.append((frame.ts, pk[:9].reshape(3, 3), pk[9:12]))
+        self._ba_h = pk[15:18].copy()
+        self._bg_h = pk[18:21].copy()
         out["keep_overflow"] = int(pk[21])
+        if prof and did_marg:
+            prof.sums["keep_overflow_lmk"] += int(pk[21])
+            prof.counts["keep_overflow_lmk"] += 1
         out["marg_degenerate"] = bool(pk[22] > 0.5)
         out["ba_cost"] = float(pk[23])
         if gm_counts is not None:
@@ -814,9 +921,13 @@ class StereoSLAM:
                     out["loop_closure"] = lc
         out["vi_initialized"] = self.vi_initialized
         if self.mesher is not None:  # densification at keyframe rate
+            if prof:
+                prof.tic()
             imgs = torch.stack([pyr_new[c][0] for c in range(2)])
             self.mesher.update(imgs, self.window, self.R_cur, self.t_cur)
             out["mesh_triangles"] = int(self.mesher.tri_mask.sum())
+            if prof:
+                prof.toc("mesh", block=self.mesher.tri_mask)
         img1 = pyr_new[1][0] if self.C > 1 else pyr_new[0][0]
         for ch in self.channels:
             if ch is not self._line_ch:  # the line channel ran before the BA
@@ -1057,9 +1168,68 @@ class StereoSLAM:
         return uv, v
 
     def run(self, frames, log_dir=None, profile=False):
-        """Process a frame list; returns the frame-rate positions (T,3)."""
-        if log_dir is not None or profile:
-            raise NotImplementedError("run(log_dir=..., profile=...) is not ported yet")
-        for f in frames:
-            self.process_frame(f)
+        """Process a frame list; returns the frame-rate positions (T,3).
+
+        profile (or a log_dir): time every stage to the end of its device
+        work; log_dir: write results.csv, vio_poses.csv and
+        slam_profiler.txt there (``write_logs``)."""
+        if profile or log_dir:
+            self._prof = Profiler()
+        n = self.drive(frames)
+        if log_dir:
+            self.write_logs(log_dir, n_frames=n)
         return np.asarray([t for _, _, t in self.traj])
+
+    def drive(self, frames, log_every=0):
+        """The frame loop over an iterable of frames, one frame ahead: with
+        ``self.prefetch`` the next frame's images are uploaded during the
+        current frame.  Under a profiler each frame's wall time, to the end
+        of its device work, goes to ``frame_total`` and to ``kf_step`` or
+        ``track_step``.  Returns the number of frames."""
+        prof = self._prof
+        it = iter(frames)
+        frame = next(it, None)
+        pending = self._upload_images(frame) if frame is not None and self.prefetch else None
+        n = 0
+        while frame is not None:
+            nxt = next(it, None)
+            if prof:
+                t0 = time.perf_counter()
+            out = self.process_frame(frame, images_dev=pending,
+                                     prefetch_frame=nxt if self.prefetch else None)
+            pending = self._prefetched
+            if prof:
+                wait_for(self.t_cur)
+                dt = time.perf_counter() - t0
+                for name in ("frame_total", "kf_step" if out.get("is_kf") else "track_step"):
+                    prof.sums[name] += dt
+                    prof.counts[name] += 1
+            frame = nxt
+            n += 1
+            if log_every and n % log_every == 0:
+                print(f"frame {n}: kf={len(self.kf_traj)} ntrk={out.get('n_tracked', '-')}")
+        return n
+
+    def write_logs(self, log_dir, n_frames=None):
+        """Write the log_slam/ set: results.csv (keyframe trajectory),
+        vio_poses.csv (frame-rate state), slam_profiler.txt when profiling,
+        results_posegraph.csv with pose_graph.  Callable from any frame
+        loop, not only run()."""
+        from sadvio_tpu_torch.pipeline.euroc import write_results_csv, write_vio_csv
+
+        os.makedirs(log_dir, exist_ok=True)
+        write_results_csv(os.path.join(log_dir, "results.csv"), self.kf_traj)
+        if self.cfg.pose_graph:
+            # end-of-run pose-graph correction over the archive
+            write_results_csv(os.path.join(log_dir, "results_posegraph.csv"),
+                              self.optimize_archive())
+        # frame-rate VIO state (pose, velocity, biases) when there is one,
+        # else position-only rows
+        rows = self.vio_log or [(ts, *np.asarray(t).tolist()) for ts, _, t in self.traj]
+        write_vio_csv(os.path.join(log_dir, "vio_poses.csv"), rows)
+        if self._prof is not None:
+            self._prof.dump_slam(
+                os.path.join(log_dir, "slam_profiler.txt"),
+                n_frames=n_frames if n_frames is not None else len(self.traj),
+                n_keyframes=len(self.kf_traj), pose_estimator=self.cfg.pose_estimator,
+                mesh_on=self.mesher is not None)

@@ -237,12 +237,20 @@ def test_csv_detector_in_pipeline(world, tmp_path):
 
 def test_ignored_labels_and_refused_keys(world):
     """Labels the JAX package does not dispatch are ignored; the keys whose
-    paths are not ported are refused."""
+    paths are not ported are refused: async_health, and typed features in
+    the mono classes.  multithreading is ported and builds the back-end
+    executor."""
+    from sadvio_tpu_torch.pipeline.mono import MonoSLAM
+
     _, rig = world
     feats = (FeatureConfig(), FeatureConfig(label="pointxd", detector="shi_tomasi"),
              FeatureConfig(label="planexd"))
     slam = StereoSLAM(rig, chan_config(features=feats), device="cpu")
     assert not slam.channels and not slam._use_csv
-    for key in ("multithreading", "async_health"):
-        with pytest.raises(NotImplementedError, match=key):
-            StereoSLAM(rig, dataclasses.replace(chan_config(), **{key: True}), device="cpu")
+    slam = StereoSLAM(rig, dataclasses.replace(chan_config(), multithreading=True), device="cpu")
+    assert slam.backend_exec is not None
+    with pytest.raises(NotImplementedError, match="async_health"):
+        StereoSLAM(rig, dataclasses.replace(chan_config(), async_health=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="features"):
+        MonoSLAM(rig, dataclasses.replace(chan_config(FeatureConfig(label="linexd")),
+                                          slam_mode="mono"), device="cpu")

@@ -50,40 +50,46 @@ def _port_classes():
 
 @pytest.mark.parametrize("preset", PRESETS)
 def test_preset_builds_its_port_pipeline(preset):
-    """The rig of the preset's dataset.yaml (built by the JAX package and
-    carried over) and its config construct the port's class for its
-    slam_mode; the other classes refuse the mode; ``_ba_opts.angular``
-    follows ``optimizer`` (tests/test_configs.py::test_preset_builds_pipeline).
-    Presets that name unported keys (multithreading; typed features in the
-    mono and nofov classes) raise NotImplementedError naming them, and
-    nothing else; without them the preset builds its typed channels as the
-    JAX package dispatches them."""
-    import jax
+    """The port's rig of the preset's dataset.yaml equals the JAX package's
+    leaf by leaf, and with the preset's config it constructs the port's
+    class for its slam_mode; the other classes refuse the mode;
+    ``_ba_opts.angular`` follows ``optimizer``
+    (tests/test_configs.py::test_preset_builds_pipeline).  Every preset
+    builds as it is, ``multithreading`` included; the one refusal left is
+    typed features in the mono and nofov classes, which raises
+    NotImplementedError naming them and nothing else.  The stereo class
+    builds the typed channels as the JAX package dispatches them."""
     import numpy as np
 
-    from sadvio_tpu.pipeline.euroc import rig_from_dataset
-    from sadvio_tpu_torch.data.convert import from_numpy
+    from sadvio_tpu.pipeline.euroc import rig_from_dataset as jax_rig_from_dataset
+    from sadvio_tpu_torch.pipeline.euroc import rig_from_dataset
 
     d = os.path.join(REPO, "configs", preset)
     cfg = tcfg.load_slam_config(os.path.join(d, "config.yaml"))
-    ds = jcfg.load_dataset_config(os.path.join(d, "dataset.yaml"))
-    jrig = rig_from_dataset(ds)
-    rig = from_numpy(jax.tree.map(np.asarray, jrig), "cpu")
+    ds = os.path.join(d, "dataset.yaml")
+    rig = rig_from_dataset(tcfg.load_dataset_config(ds), "cpu")
+    jrig = jax_rig_from_dataset(jcfg.load_dataset_config(ds))
     assert type(rig.cam).__name__ == type(jrig.cam).__name__
+    for f in dataclasses.fields(rig.cam):
+        a, b = getattr(rig.cam, f.name), getattr(jrig.cam, f.name)
+        if isinstance(a, int):
+            assert a == b, f.name
+        else:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f.name)
+    for name in ("R_f_s", "t_f_s"):
+        np.testing.assert_array_equal(getattr(rig, name).numpy(),
+                                      np.asarray(getattr(jrig, name)), err_msg=name)
     classes = _port_classes()
     cls = classes[MODE_CLASS[cfg.slam_mode]]
     typed = any(f.label.lower() != "pointxd" or f.detector.lower() in ("csv", "cvcsv")
                 for f in cfg.features)
-    unported = {"multithreading": cfg.multithreading,
-                "features": typed and not cls.TYPED_FEATURES}
-    if any(unported.values()):
+    if typed and not cls.TYPED_FEATURES:
         with pytest.raises(NotImplementedError) as err:
             cls(rig, cfg, device="cpu")
-        assert str(err.value).split(": ")[1] == ", ".join(k for k, v in unported.items() if v)
-        cfg = dataclasses.replace(cfg, multithreading=False)
-        if unported["features"]:
-            return
+        assert str(err.value).split(": ")[1] == "features"
+        return
     slam = cls(rig, cfg, device="cpu")
+    assert (slam.backend_exec is not None) == cfg.multithreading
     labels = [f.label.lower() for f in cfg.features]
     assert (slam._line_ch is not None) == ("linexd" in labels and rig.C >= 2)
     assert len(slam.channels) == sum(lb in ("linexd", "edgeletxd", "ellipsepatternxd", "bboxxd")

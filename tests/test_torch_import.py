@@ -52,6 +52,16 @@ MODULES = [
     "sadvio_tpu_torch.frontend.descriptors",
     "sadvio_tpu_torch.pipeline.channels",
     "sadvio_tpu_torch.pipeline.line_channel",
+    "sadvio_tpu_torch.utils.profiler",
+    "sadvio_tpu_torch.utils.checkpoint",
+    "sadvio_tpu_torch.parallel.pipeline_parallel",
+    "sadvio_tpu_torch.pipeline.euroc",
+    "sadvio_tpu_torch.pipeline.native_io",
+    "sadvio_tpu_torch.pipeline.online",
+    "sadvio_tpu_torch.run_euroc",
+    "sadvio_tpu_torch.ros2_node",
+    "sadvio_tpu_torch.tools.compare_euroc",
+    "sadvio_tpu_torch.tools.visualize",
 ]
 
 _PROBE = """

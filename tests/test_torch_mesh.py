@@ -2,8 +2,9 @@
 plane fixture of tests/test_mesh.py (made once with numpy, fed to both).
 
 Tolerances, with reasons:
-* Delaunay: both triangulate with scipy here; triangle *sets* are compared
-  (two triangulators may order triangles and vertices differently);
+* Delaunay: both triangulate with the native library when it builds and
+  with scipy otherwise; triangle *sets* are compared (two triangulators may
+  order triangles and vertices differently);
 * geometric and normal filters: identical masks (a non-planar, partly
   degenerate landmark set, so that every gate rejects something);
 * ZNCC: identical masks for every triangle whose score is at least 1e-3 away
