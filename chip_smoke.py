@@ -41,7 +41,7 @@ then ``lk_track`` at its widest warped camera-1 re-track; the exotic runs
 40 frames each); the typed channels: configs/euroc_bimonovio_full
 (multithreading off, keyframe parallax 1.0 deg) with lines in the window BA
 at 752x480 over the main world with 12 bright 3D segments, the starved line
-world of tests/test_line_e2e.py with and without lines over seven RANSAC
+world of tests/test_line_e2e.py with and without lines over five RANSAC
 seeds, ``detect_lines`` twice on one frame (bit-equal), device profiles of
 ``detect_lines`` and of the standalone line refinement; edgelet,
 coded-ellipse, provider-box and csv-keypoint runs of 40 frames each; ORB,
@@ -54,7 +54,15 @@ slam_profiler.txt, lk_track launches), a second run that saves a
 checkpoint at frame 65 and a fresh instance resumed from it (held to the
 gap between the two uninterrupted runs, at least 1e-6 m), configs/
 euroc_bimonovio_full for 40 frames with multithreading on and off (CLAHE
-through the loader), and clahe and remap on the card against the CPU.
+through the loader), and clahe and remap on the card against the CPU; the
+parallel modules: the associative preintegration against the sequential
+one at N=10 and N=200, the main path's last 8 window BAs batched by vmap
+against 8 separate solves, and two ranks sharing the card (gloo over CUDA
+tensors) running the landmark-sharded BA and the time-sharded
+preintegration against the single-device ones; the main path's 130 frames
+with async_health off, on, on, off; typed labels in the mono class (only
+the ellipse channel builds, a coded pattern stamped) and in the nofov class
+(all four channels), 40 frames each.
 After every phase a probe asks whether ``torch.profiler`` still records an
 ``lk_track`` launch.  No phase catches its own failure.
 
@@ -170,11 +178,14 @@ def _host_us(fn, n=200):
     return dt / n * 1e6
 
 
-def _profile(fn, n=1, required=True):
+def _profile(fn, n=1):
     """Device activity of n calls of fn by torch.profiler: ({kernel name:
-    (count, self device us)}, wall seconds).  With `required` false a
-    profile without device time is reported and returned empty: the caller
-    keeps its CUDA-event times."""
+    (count, self device us)}, wall seconds).  The profiler gates nothing:
+    within one process it may stop recording device activity after a few
+    sessions, at a point that differs between calls (PERF.md §6), so a
+    profile without device time is reported and returned empty, and the
+    caller keeps its CUDA-event times or profiles again in a fresh process
+    (_fresh_process_profile_ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -192,7 +203,6 @@ def _profile(fn, n=1, required=True):
             out[e.key] = (e.count, float(e.self_device_time_total))
     msg = (f"torch.profiler recorded no device time ({len(events)} events: "
            f"{sorted({str(e.device_type) for e in events})})")
-    _require(out or not required, msg)
     if not out:
         print(f"profiler: {msg}")
     return out, wall
@@ -206,10 +216,10 @@ def _kernel_self_ms(table, name, calls, launches=None):
     if not table:
         return None
     hit = [(c, us) for k, (c, us) in table.items() if name in k]
-    _require(hit, f"profiler saw no kernel named {name}")
     seen = sum(c for c, _ in hit)
-    if launches is not None and seen != launches:
-        print(f"profiler: {seen} of {launches} {name} launches recorded: a partial profile")
+    if not hit or (launches is not None and seen != launches):
+        expected = "" if launches is None else f" of {launches}"
+        print(f"profiler: {seen}{expected} {name} launches recorded: a partial profile")
         return None
     return sum(us for _, us in hit) / calls / 1e3
 
@@ -368,10 +378,13 @@ def phase_kernel(frame, device):
         ms_graph = [_graph_ms(run_k), _graph_ms(run_k)]
         ms_r.append(_loop_ms(run_r, n=5, warmup=1))
         table, _ = _profile(run_k, n=20)
+        prof_ms = _kernel_self_ms(table, "lk_iterate_kernel", 20, 20)
+        if prof_ms is None:
+            prof_ms = _fresh_process_profile_ms(f"lk_iterate level {lvl}", "lk_iterate",
+                                                (img1, uv, T, gx, gy, nrm), {"iters": iters}, 20)
         row = {"level": lvl, "H": img1.shape[0], "W": img1.shape[1], "iters": iters,
                "good": int(g.sum()), "max_abs_err_uv": d_uv, "max_abs_err_err": d_err,
-               "ms": float(np.mean(ms_graph)),
-               "profiler_ms": _kernel_self_ms(table, "lk_iterate_kernel", 20, 20),
+               "ms": float(np.mean(ms_graph)), "profiler_ms": prof_ms,
                "one_launch_ms": _loop_ms(run_k, n=1, warmup=3),
                "host_us": _host_us(run_k), "plain_ms": float(np.mean(ms_r)),
                **bound_lk_iterate(img1, uv, T, gx, gy, nrm, iters)}
@@ -379,7 +392,7 @@ def phase_kernel(frame, device):
         print(f"kernel lk_iterate: level {lvl} {row['H']}x{row['W']} N={N_FEATURES} "
               f"S={2 * RADIUS + 1} iters={iters} good={row['good']} "
               f"max|duv|={d_uv:.3e} px max|derr|={d_err:.3e} | device {row['ms']:.5f} ms "
-              f"(graph of {GRAPH_LAUNCHES}) profiler self {row['profiler_ms']:.5f} ms, "
+              f"(graph of {GRAPH_LAUNCHES}) profiler self {_ms(row['profiler_ms'])}, "
               f"events around one Python call {row['one_launch_ms']:.4f} ms, "
               f"host {row['host_us']:.1f} us/call, plain {row['plain_ms']:.3f} ms, "
               f"bound {row['bound_ms']:.5f} ms by {row['bound_by']} "
@@ -450,15 +463,15 @@ def phase_track_kernel(frames, device):
     return rows
 
 
-def _track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels,
-                      profiler_required=True):
+def _track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels):
     """One call shape of lk_track: held against lk_track_ref and the
     five-launch engine="levels" track (NaN rows equal, `valid` equal away
     from a gate tie, positions within UV_TOL_PX on features valid in both;
     how many of those differ in any bit, and by how many float32 units in
-    the last place at most, is printed), then timed in turns.  Without
-    `profiler_required`, a profile that records no device time leaves the
-    profiler figures "not measured" (the CUDA-event times stay)."""
+    the last place at most, is printed), then timed in turns.  Where the
+    profile records none or part of the launches, lk_track's profiler time
+    is taken in a fresh process and the levels engine's profiler figures
+    are "not measured" (the CUDA-event times stay)."""
     from sadvio_tpu_torch.frontend import klt
     from sadvio_tpu_torch.ops import klt_kernel
 
@@ -510,8 +523,8 @@ def _track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels,
     ms_l.append(_loop_ms(run_l))
     ms_r.append(_loop_ms(run_r, n=3, warmup=1))
     n_prof = 10
-    tab_k, _ = _profile(run_k, n=n_prof, required=profiler_required)
-    tab_l, _ = _profile(run_l, n=n_prof, required=profiler_required)
+    tab_k, _ = _profile(run_k, n=n_prof)
+    tab_l, _ = _profile(run_l, n=n_prof)
     row = {"shape": shape, "max_abs_err_uv": worst["uv"], "max_abs_err_err": worst["err"],
            "ms": float(np.mean(ms_k)),
            "profiler_ms": _kernel_self_ms(tab_k, "lk_track_kernel", n_prof, n_prof),
@@ -524,16 +537,15 @@ def _track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels,
            "levels_kernels": sum(c for c, _ in tab_l.values()) / n_prof if tab_l else None,
            "levels_host_us": _host_us(run_l, n=20),
            **bound_lk_track(pyr0, pyr1, uv0, init, valid0, warp, bwd, levels)}
-    if not profiler_required:
-        # late in the run this process's profiler records no device activity,
-        # or part of it (PERF.md §6): profile the same call in a fresh process
-        row["profiler_ms"] = _fresh_process_profile_ms(shape, (pyr0, pyr1, uv0, init, valid0,
-                                                               warp), kw, n_prof)
+    if row["profiler_ms"] is None:
+        row["profiler_ms"] = _fresh_process_profile_ms(
+            f"{shape} track", "lk_track", (pyr0, pyr1, uv0, init, valid0, warp), kw, n_prof)
     H, W = pyr0[0].shape
     print(f"kernel lk_track: {shape} track {H}x{W} N={N} S={2 * RADIUS + 1} levels={levels} "
           f"| fused: device {row['ms']:.5f} ms (graph of {GRAPH_LAUNCHES}), profiler self "
           f"{_ms(row['profiler_ms'])}, as Python launches it {row['python_loop_ms']:.4f} ms, "
-          f"host {row['host_us']:.1f} us/call | engine=levels: {row['levels_kernels']} "
+          f"host {row['host_us']:.1f} us/call | engine=levels: "
+          f"{'not measured' if row['levels_kernels'] is None else row['levels_kernels']} "
           f"kernels, device {_ms(row['levels_device_ms'], 4)} (profiler, all kernels; "
           f"lk_iterate alone {_ms(row['levels_lk_iterate_device_ms'])}), as Python launches "
           f"it {row['levels_python_loop_ms']:.3f} ms, host {row['levels_host_us']:.0f} us/call "
@@ -545,42 +557,47 @@ def _track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels,
 PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".smoke_profile")
 
 
-def _fresh_process_profile_ms(shape, args, kw, n):
-    """lk_track's profiler self time per call, taken in a new interpreter on
-    the same inputs (saved under the git-ignored .smoke_profile/, removed
-    after): ms, or None if that profile records no device time either."""
+def _fresh_process_profile_ms(label, kernel, args, kw, n):
+    """The profiler self time per call of klt_kernel.<kernel>(*args, **kw),
+    taken in a new interpreter on the same inputs (saved under the
+    git-ignored .smoke_profile/, removed after): ms, or None if that
+    profile records no device time either.  An argument is a tensor, a
+    tuple of tensors (a pyramid) or None."""
     import shutil
 
+    cpu = lambda a: (None if a is None else [t.cpu() for t in a] if isinstance(a, (tuple, list))
+                     else a.cpu())
     os.makedirs(PROFILE_DIR, exist_ok=True)
-    path = os.path.join(PROFILE_DIR, f"{shape.replace(' ', '_')}.pt")
-    torch.save({"args": [[t.cpu() for t in a] if isinstance(a, (tuple, list)) else a.cpu()
-                         for a in args], "kw": kw, "n": n}, path)
+    path = os.path.join(PROFILE_DIR, f"{label.replace(' ', '_')}.pt")
+    torch.save({"kernel": kernel, "args": [cpu(a) for a in args], "kw": kw, "n": n}, path)
     try:
         proc = subprocess.run([sys.executable, "-c", f"import chip_smoke as c; "
                                f"c._profile_saved({path!r})"], cwd=REPO, capture_output=True,
                               text=True, timeout=300)
     finally:
         shutil.rmtree(PROFILE_DIR, ignore_errors=True)
-    _require(proc.returncode == 0, f"fresh-process profile of {shape}: {proc.stderr[-2000:]}")
+    _require(proc.returncode == 0, f"fresh-process profile of {label}: {proc.stderr[-2000:]}")
     ms = json.loads(proc.stdout.strip().splitlines()[-1])["profiler_ms"]
-    print(f"kernel lk_track: {shape} track profiled in a fresh process: self "
-          f"{_ms(ms)} per call ({n} calls)")
+    print(f"kernel {kernel}: {label} profiled in a fresh process: self {_ms(ms)} per call "
+          f"({n} calls)")
     return ms
 
 
 def _profile_saved(path):
-    """Entry of the fresh process: profile n lk_track calls on the saved
-    inputs; prints {"profiler_ms": ...} as its last line."""
+    """Entry of the fresh process: profile n calls of the saved kernel on
+    the saved inputs; prints {"profiler_ms": ...} as its last line."""
     import sadvio_tpu_torch  # noqa: F401  (pins full fp32)
     from sadvio_tpu_torch.ops import klt_kernel
 
     d = torch.load(path)
     dev = torch.device("cuda")
-    to = lambda a: tuple(t.to(dev) for t in a) if isinstance(a, list) else a.to(dev)
-    pyr0, pyr1, uv0, init, valid0, warp = [to(a) for a in d["args"]]
-    tab, _ = _profile(lambda: klt_kernel.lk_track(pyr0, pyr1, uv0, init, valid0, warp,
-                                                  **d["kw"]), n=d["n"], required=False)
-    print(json.dumps({"profiler_ms": _kernel_self_ms(tab, "lk_track_kernel", d["n"], d["n"])}))
+    to = lambda a: (None if a is None else tuple(t.to(dev) for t in a) if isinstance(a, list)
+                    else a.to(dev))
+    args = [to(a) for a in d["args"]]
+    fn = getattr(klt_kernel, d["kernel"])
+    tab, _ = _profile(lambda: fn(*args, **d["kw"]), n=d["n"])
+    print(json.dumps({"profiler_ms": _kernel_self_ms(tab, f"{d['kernel']}_kernel", d["n"],
+                                                     d["n"])}))
 
 
 MAIN_CAPS = dict(K=11, L=512, P=48, pyr_levels=LEVELS, klt_radius=RADIUS)
@@ -660,12 +677,13 @@ class _TimedFunctions:
 
 
 def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profile_frames=(),
-             cfg_kw=None, capture_roll=None):
+             cfg_kw=None, capture_roll=None, capture_ba=0):
     """Drive StereoSLAM over `frames` on `engine`; returns the run's record.
     Launch counts are set to 0 just before the first frame and read just
     after the last.  `profile_frames` (first, last) puts torch.profiler
     around those frames.  `cfg_kw` overrides config keys.  `capture_roll`
-    keeps a copy of what the n-th VIO window roll was given."""
+    keeps a copy of what the n-th VIO window roll was given; `capture_ba`
+    keeps the BAProblems of the last n window BAs (`_backend` calls)."""
     from sadvio_tpu_torch.ops import klt_kernel
     from sadvio_tpu_torch.pipeline import synthetic
     from sadvio_tpu_torch.pipeline.config import Capacities, SLAMConfig
@@ -688,6 +706,20 @@ def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profil
             return roll(window, obs, imu, priors, tracks, vio, **k)
 
         slam._marg_roll = capturing
+    ba_problems = []
+    if capture_ba:
+        from sadvio_tpu_torch.backend import ba
+
+        backend = slam._backend
+
+        def keeping(window, obs, imu_chain, priors, fixed_n, lines=None):
+            fixed = torch.arange(slam.caps.K, device=device) < fixed_n  # as _backend builds it
+            ba_problems.append(ba.BAProblem(window, obs, slam.rig, imu_chain, priors, fixed,
+                                            False, lines))
+            del ba_problems[:-capture_ba]
+            return backend(window, obs, imu_chain, priors, fixed_n, lines)
+
+        slam._backend = keeping
     stage_log = _time_stages(slam) if stages else None
     klt_kernel.lk_iterate.launches = 0
     klt_kernel.lk_track.launches = 0
@@ -715,7 +747,8 @@ def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profil
            "frame_ms": np.asarray(frame_ms), "is_kf": np.asarray(is_kf),
            "lk_iterate": klt_kernel.lk_iterate.launches, "lk_track": klt_kernel.lk_track.launches,
            "lk_track_by_levels": dict(klt_kernel.lk_track.launches_by_levels),
-           "stages": stage_log, "outs": outs, "captured": captured.get("state")}
+           "stages": stage_log, "outs": outs, "captured": captured.get("state"),
+           "ba_problems": ba_problems}
     est = np.asarray([t for _, _, t in slam.traj])
     _require(len(est) == len(frames), "one pose per frame expected")
     _require(np.isfinite(est).all() and all(np.isfinite(R).all() for _, R, _ in slam.traj),
@@ -752,7 +785,7 @@ def phase_main_path(world, frames, device):
     """The full-width main path on the fused engine: one lk_track launch
     per klt.track call and none of lk_iterate."""
     with _ClockSampler() as clocks:
-        rec = run_slam(world, frames, device, "fused")
+        rec = run_slam(world, frames, device, "fused", capture_ba=PAR_B)
     slam = rec["slam"]
     print(f"main path: {_describe(rec)}")
     print(f"main path: {clocks.summary()}")
@@ -871,6 +904,9 @@ def phase_stage_kernels(long_rec):
     calls["optimize_archive"] = (long_rec["slam"].optimize_archive, (), {})
     for key, (fn, a, k) in calls.items():
         table, _ = _profile(lambda: fn(*a, **k), n=5)
+        if not table:
+            print(f"measure: stage {key}: kernels and device time not measured")
+            continue
         print(f"measure: stage {key}: {sum(c for c, _ in table.values()) / 5:.0f} kernels, "
               f"{sum(us for _, us in table.values()) / 5 / 1e3:.3f} ms of device time per call")
 
@@ -1355,8 +1391,7 @@ def phase_mono_kernel(mono):
     camera), on the inputs the mono run gave its 40th frame track."""
     (pyr0, pyr1, uv0, init, valid0), kw = mono["capture"]
     return _track_kernel_row("mono frame", pyr0, pyr1, uv0.contiguous(), init.contiguous(),
-                             valid0.contiguous(), kw["warp"].contiguous(), 1, LEVELS,
-                             profiler_required=False)
+                             valid0.contiguous(), kw["warp"].contiguous(), 1, LEVELS)
 
 
 def phase_nofov_kernel(nofov):
@@ -1370,8 +1405,7 @@ def phase_nofov_kernel(nofov):
     print(f"kernel lk_track: nofov re-track input: camera-1 rotation {angle:.2f} deg, "
           f"{int(valid.sum())} common camera-1 tracks")
     row = _track_kernel_row("nofov re-track", pyr_a, pyr_b, uv_a.contiguous(), init.contiguous(),
-                            valid.contiguous(), warp.contiguous(), 1, LEVELS,
-                            profiler_required=False)
+                            valid.contiguous(), warp.contiguous(), 1, LEVELS)
     row["rotation_deg"] = angle
     return row
 
@@ -1489,7 +1523,7 @@ STARVED = dict(seed=7, n_frames=24, width=320, height=240, n_points=20, n_lines=
 # here; the JAX package itself gives 0.72 on this seed and 0.99, 1.37, 1.02
 # on seeds 8-10
 STARVED_RATIO = 1.0
-STARVED_SEEDS = 7
+STARVED_SEEDS = 5  # 7 before the parallel, async and typed-mode phases came in
 CHANNEL_FRAMES = 40
 # a 2 m pattern (20 px markers): at 752x480 the dark background of the blob
 # world needs more than connected_components' 512 steps, and the cap leaves
@@ -1528,7 +1562,7 @@ def _seg_errors(segments, slam, world):
 def _device_profile(name, fn, n=3):
     """Kernels and device ms per call of fn by torch.profiler (reported as
     not measured where it records no device time)."""
-    table, wall = _profile(fn, n=n, required=False)
+    table, wall = _profile(fn, n=n)
     if not table:
         print(f"lines: {name}: kernels and device time not measured")
         return None
@@ -1545,7 +1579,7 @@ def phase_lines(device):
     window BA, global map, pose graph and mesh, over the main path's world
     (seed 5) with 12 bright 3D segments,
     130 frames; then tests/test_line_e2e.py's starved world with and without
-    lines (over seven RANSAC seeds: lines must not make it worse in the
+    lines (over five RANSAC seeds: lines must not make it worse in the
     median, and their map must lie within 0.5 m of the true lines); then
     detect_lines twice on one frame, which must be bit-equal."""
     from sadvio_tpu_torch.frontend import lines as lines_mod
@@ -1855,7 +1889,7 @@ def phase_profiler_probe(after, frames, device, log):
     counts = (klt_kernel.lk_track.launches, dict(klt_kernel.lk_track.launches_by_levels))
     table, _ = _profile(lambda: klt_kernel.lk_track(
         pyr0, pyr1, uv0, init, valid0, warp, levels=LEVELS, radius=RADIUS, iters=ITERS,
-        iters_coarse=ITERS_COARSE, bwd_levels=bwd), n=1, required=False)
+        iters_coarse=ITERS_COARSE, bwd_levels=bwd), n=1)
     # probe launches are not the path's
     klt_kernel.lk_track.launches, klt_kernel.lk_track.launches_by_levels = counts
     seen = any("lk_track" in k for k in table)
@@ -2061,6 +2095,342 @@ def phase_euroc(world, frames, device, measure=False):
             "mt_gap": mt_gap, "img_err": rows}
 
 
+# --------------------------------------------------------------------------
+# slice 7: the parallel modules, async_health, typed labels in the mono modes
+# --------------------------------------------------------------------------
+
+PAR_B = 8  # windows in the batched BA: the main path's last 8 window BAs
+PAR_IMU_N = (10, 200)  # one 20 Hz frame's samples, a 1 s keyframe interval
+PAR_SHARD_N = 256  # samples of the time-sharded preintegration over 2 ranks
+PAR_RANKS = 2
+PAR_T_TOL_M = 1e-4  # batched against separate solves, on t
+PAR_DIR = os.path.join(REPO, ".smoke_parallel")  # git-ignored; removed after the phase
+PAR_TIMEOUT_S = 300
+# tests/test_time_sharding.py:_check_equal's tolerances: (rtol, atol) per field;
+# the covariance's atol is relative to its largest entry
+PREINT_TOL = {"dR": (0.0, 3e-6), "dv": (0.0, 1e-5), "dp": (0.0, 1e-5), "dt": (0.0, 1e-6),
+              "cov": (2e-4, 2e-4), **{f: (2e-4, 2e-6) for f in (
+                  "J_dR_bg", "J_dv_ba", "J_dv_bg", "J_dp_ba", "J_dp_bg")}}
+# tests/test_sharding.py's tolerances: t and R, landmarks, relative cost
+SHARD_TOL = {"t": 1e-4, "R": 1e-4, "lmk": 1e-3, "cost": 1e-3}
+TYPED_FRAMES = 40
+TYPED_LABELS = ("linexd", "edgeletxd", "ellipsepatternxd", "bboxxd")
+
+PAR_WORKER = r"""
+import json, sys, time
+import torch
+import torch.distributed as dist
+
+rank, world, port, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                        world_size=world)
+import chip_smoke as cs
+from sadvio_tpu_torch.backend import ba
+from sadvio_tpu_torch.models import imu
+from sadvio_tpu_torch.parallel import sharding, time_sharding
+from sadvio_tpu_torch.utils.struct import tree_map
+
+dev = torch.device("cuda", 0)  # both ranks share the one card
+inp = torch.load(f"{d}/inputs.pt", weights_only=False)
+problem = tree_map(lambda x: x.to(dev), inp["problem"])
+opts = inp["opts"]
+mesh = sharding.make_mesh(world)
+out = {}
+for name, run in (("ba", lambda: sharding.ba_solve_sharded(problem, opts, mesh)),
+                  ("imu", lambda: time_sharding.preintegrate_time_sharded(
+                      *[x.to(dev) for x in inp["imu"]], imu.ImuParams.euroc(),
+                      time_sharding.make_time_mesh(world)))):
+    run()  # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    out[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+    out[name] = res
+state, stats = out["ba"]
+ref, ref_stats = ba.ba_solve(problem, opts)
+km, lm = ref.kf_mask, ref.lmk_mask
+err = {"t": float((state.t - ref.t)[km].abs().max()), "R": float((state.R - ref.R)[km].abs().max()),
+       "lmk": float((state.lmk - ref.lmk)[lm].abs().max()),
+       "cost": abs(float(stats["cost"]) / float(ref_stats["cost"]) - 1.0)}
+seq = imu.preintegrate(*[x.to(dev) for x in inp["imu"]], imu.ImuParams.euroc())
+res = {"rank": rank, "ba_ms": out["ba_ms"], "imu_ms": out["imu_ms"], "ba_err": err,
+       "imu_excess": cs.preint_excess(out["imu"], seq), "t": state.t.cpu().tolist(),
+       "cost": float(stats["cost"]), "ref_cost": float(ref_stats["cost"]),
+       "accepted": stats["accepted"].cpu().tolist()}
+with open(f"{d}/rank_{rank}.json", "w") as fh:
+    json.dump(res, fh)
+dist.destroy_process_group()
+"""
+
+
+def preint_excess(a, b):
+    """max(|a - b| - (atol + rtol |b|)) per field at PREINT_TOL: <= 0 passes."""
+    out = {}
+    for f, (rtol, atol) in PREINT_TOL.items():
+        x, y = getattr(a, f).double(), getattr(b, f).double()
+        if f == "cov":
+            atol = atol * float(y.abs().max())
+        out[f] = float(((x - y).abs() - (atol + rtol * y.abs())).max())
+    return out
+
+
+def _event_host_ms(fn, reps=5):
+    """Medians over reps of (device ms between CUDA events around fn, host ms
+    to the end of its device work)."""
+    dev, host = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(e0.elapsed_time(e1))
+    return float(np.median(dev)), float(np.median(host))
+
+
+def _spawn_ranks(n, args, timeout=PAR_TIMEOUT_S):
+    """PAR_WORKER in n processes on this machine (gloo over localhost);
+    every child is waited for, and killed on the timeout."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+        sk.bind(("localhost", 0))
+        port = str(sk.getsockname()[1])
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable, "-c", PAR_WORKER, str(r), str(n), port, *args],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, cwd=REPO)
+             for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        _require(p.returncode == 0, f"parallel: rank {r} failed:\n{out[-3000:]}")
+
+
+def phase_parallel(main_rec, frames, device):
+    """The parallel modules on the card: preintegrate_assoc against
+    preintegrate at N=10 and N=200 (the main world's IMU samples); the
+    batched BA of the main path's last 8 window BAs (K=11, C=2, L=512, P=48)
+    against 8 separate solves, timed in turns; and 2 ranks sharing the card
+    (gloo over CUDA tensors): the landmark-sharded solve of the last window
+    against the single-device solve, and the time-sharded preintegration
+    at N=256 (the JAX test's stream) against the sequential one."""
+    import shutil
+
+    from sadvio_tpu_torch.backend import ba
+    from sadvio_tpu_torch.models import imu
+    from sadvio_tpu_torch.parallel import multiseq
+
+    cat = lambda key: np.concatenate([np.asarray(getattr(f, key), np.float32)
+                                      for f in frames[1:]])
+    acc, gyr, dt = cat("acc"), cat("gyr"), cat("dt")
+    params = imu.ImuParams.euroc()
+    slam = main_rec["slam"]
+    z = torch.zeros(3, device=device)
+    for n in PAR_IMU_N:
+        a, g, h = (torch.as_tensor(x[:n], device=device) for x in (acc, gyr, dt))
+        seq = imu.preintegrate(a, g, h, z, z, params)
+        assoc = imu.preintegrate_assoc(a, g, h, z, z, params)
+        excess = preint_excess(assoc, seq)
+        t_seq = _event_host_ms(lambda: imu.preintegrate(a, g, h, z, z, params))
+        t_assoc = _event_host_ms(lambda: imu.preintegrate_assoc(a, g, h, z, z, params))
+        print(f"parallel: preintegration N={n}: sequential {t_seq[0]:.3f} ms device (events) / "
+              f"{t_seq[1]:.3f} ms host, associative {t_assoc[0]:.3f} ms device / "
+              f"{t_assoc[1]:.3f} ms host; worst excess over the tolerance "
+              f"{max(excess.values()):.3e} ({max(excess, key=excess.get)})")
+        _require(max(excess.values()) <= 0.0, f"parallel: preintegrate_assoc N={n}: {excess}")
+
+    probs = list(main_rec["ba_problems"])
+    _require(probs, "parallel: the main path ran no window BA")
+    gen = torch.Generator(device=device).manual_seed(7)
+    last = probs[-1]
+    while len(probs) < PAR_B:  # seeded perturbations of the last window
+        st = last.state
+        noise = lambda x, s: x + s * torch.randn(x.shape, generator=gen, device=device)
+        probs.append(last._replace(state=st.replace(t=noise(st.t, 0.01), lmk=noise(st.lmk, 0.02))))
+    n_real = len(main_rec["ba_problems"])
+    opts = slam._ba_opts
+    batched = multiseq.stack_problems(probs)
+    seq_states = [ba.ba_solve(p, opts)[0] for p in probs]
+    bstate, _ = multiseq.ba_solve_batch(batched, opts)
+    err = max(float((bstate.t[i] - s.t)[s.kf_mask].abs().max()) for i, s in enumerate(seq_states))
+    times = {"separate": [], "batched": []}
+    for name in ("separate", "batched", "batched", "separate"):
+        fn = ((lambda: [ba.ba_solve(p, opts) for p in probs]) if name == "separate"
+              else (lambda: multiseq.ba_solve_batch(batched, opts)))
+        times[name].append(_event_host_ms(fn, reps=1))
+    shape = tuple(probs[0].obs.mask.shape) + (probs[0].priors.P,)
+    print(f"parallel: batched BA of {PAR_B} windows (K, C, L, P = {shape}, {n_real} from the "
+          f"main path's last window BAs, {opts.iters} LM iterations): max |t - t_separate| "
+          f"{err:.3e} m; in turns separate, batched, batched, separate: "
+          + ", ".join(f"{k} {d:.1f} ms device / {h:.1f} ms host" for k in times
+                      for d, h in times[k]))
+    _require(err < PAR_T_TOL_M, f"parallel: batched BA off by {err:.3e} m")
+
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    os.makedirs(PAR_DIR)
+    try:
+        torch.save({"problem": _to_cpu(last), "opts": opts,
+                    "imu": _imu_stream(PAR_SHARD_N) + [torch.zeros(3), torch.zeros(3)]},
+                   os.path.join(PAR_DIR, "inputs.pt"))
+        t0 = time.perf_counter()
+        _spawn_ranks(PAR_RANKS, [PAR_DIR])
+        spawn_s = time.perf_counter() - t0
+        res = []
+        for r in range(PAR_RANKS):
+            with open(os.path.join(PAR_DIR, f"rank_{r}.json")) as fh:
+                res.append(json.load(fh))
+    finally:
+        shutil.rmtree(PAR_DIR, ignore_errors=True)
+    r0 = res[0]
+    print(f"parallel: 2 ranks sharing one card (gloo, CUDA tensors; not a scaling number): "
+          f"landmark-sharded BA {[round(r['ba_ms'], 1) for r in res]} ms per rank, errors "
+          f"against the single-device solve {r0['ba_err']} (cost {r0['cost']:.6g} vs "
+          f"{r0['ref_cost']:.6g}); time-sharded preintegration N={PAR_SHARD_N} "
+          f"{[round(r['imu_ms'], 2) for r in res]} ms, worst excess over the tolerance "
+          f"{max(r0['imu_excess'].values()):.3e}; spawn to exit {spawn_s:.1f} s")
+    _require(all(r["t"] == r0["t"] and r["accepted"] == r0["accepted"] for r in res),
+             "parallel: the ranks disagree")
+    _require(all(r0["ba_err"][k] < SHARD_TOL[k] for k in SHARD_TOL),
+             f"parallel: sharded BA off: {r0['ba_err']}")
+    _require(max(r0["imu_excess"].values()) <= 0.0, f"parallel: time-sharded: {r0['imu_excess']}")
+    return {"imu_n": PAR_IMU_N, "ba_err": err, "times": times, "ranks": res}
+
+
+def _imu_stream(n, seed=0):
+    """tests/test_time_sharding.py's stream (its tolerances were set on it):
+    acc ~ N(0, 2) + gravity, gyr ~ N(0, 0.5), 200 Hz.  On the main world's
+    IMU samples a small entry of J_dv_bg differs between the two float32
+    summation orders by a little more than that test's atol."""
+    rng = np.random.default_rng(seed)
+    acc = rng.normal(0.0, 2.0, (n, 3)).astype(np.float32)
+    acc[:, 2] += 9.81
+    gyr = rng.normal(0.0, 0.5, (n, 3)).astype(np.float32)
+    return [torch.as_tensor(acc), torch.as_tensor(gyr), torch.full((n,), 1.0 / 200.0)]
+
+
+def _to_cpu(problem):
+    from sadvio_tpu_torch.utils.struct import tree_map
+
+    return tree_map(lambda x: x.cpu(), problem)
+
+
+def _async_run(world, frames, device, on):
+    """The main path's config with async_health on or off, no synchronise
+    between frames (the loop a user runs); each health read is timed."""
+    from sadvio_tpu_torch.ops import klt_kernel
+    from sadvio_tpu_torch.pipeline import synthetic
+    from sadvio_tpu_torch.pipeline.config import Capacities, SLAMConfig
+    from sadvio_tpu_torch.pipeline.slam import StereoSLAM
+
+    cfg = SLAMConfig(slam_mode="bimonovio", max_kf_number=10, min_lmk_number=40,
+                     max_movement_parallax=1.0, min_movement_parallax=0.02, async_health=on,
+                     caps=Capacities(**MAIN_CAPS))
+    slam = StereoSLAM(world.rig, cfg, imu_params=world.imu_params, device=device)
+    reads, read = [], slam._read_health
+
+    def timed(fetch):
+        t0 = time.perf_counter()
+        h = read(fetch)
+        reads.append((time.perf_counter() - t0) * 1e6)
+        return h
+
+    slam._read_health = timed
+    klt_kernel.lk_track.launches = 0
+    klt_kernel.lk_iterate.launches = 0
+    torch.cuda.synchronize()
+    ms, outs = [], []
+    t_run = time.perf_counter()
+    for f in frames:
+        t0 = time.perf_counter()
+        outs.append(slam.process_frame(f))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    slam._flush_health()
+    torch.cuda.synchronize()
+    rec = {"on": on, "slam": slam, "run_s": time.perf_counter() - t_run, "frame_ms": np.asarray(ms),
+           "reads_us": np.asarray(reads), "frames": len(frames),
+           "is_kf": np.asarray([bool(o["is_kf"]) for o in outs]),
+           "lags": sum(o.get("pose_ts", o["ts"]) != o["ts"] for o in outs),
+           "lk_track": klt_kernel.lk_track.launches, "lk_iterate": klt_kernel.lk_iterate.launches}
+    est = np.asarray([t for _, _, t in slam.traj])
+    _require(len(est) == len(frames) and np.isfinite(est).all(), "async: one pose per frame expected")
+    rec["ate"] = synthetic.ate_rmse(est, world.gt_t[: len(est)])
+    return rec
+
+
+def phase_async_health(world, frames, device):
+    """The main path's 130 frames with async_health off and on, in turns
+    (off, on, on, off): each reaches ATE < 50 mm with VIInit; keyframe
+    frames, lagged frames, frame times and health-read times are printed,
+    and no speed is gated."""
+    recs = [_async_run(world, frames, device, on) for on in (False, True, True, False)]
+    for r in recs:
+        kf = np.flatnonzero(r["is_kf"]).tolist()
+        tag = "on " if r["on"] else "off"
+        print(f"async_health {tag}: ATE {r['ate'] * 1e3:.3f} mm, VIInit "
+              f"{r['slam'].vi_initialized}, keyframe frames {kf}, lagged frames {r['lags']}, "
+              f"median frame {np.median(r['frame_ms']):.2f} ms (tracking frames "
+              f"{np.median(r['frame_ms'][~r['is_kf']]):.2f} ms), run {r['run_s']:.2f} s, health "
+              f"reads {len(r['reads_us'])}: median {np.median(r['reads_us']):.1f} us, p90 "
+              f"{np.percentile(r['reads_us'], 90):.1f} us, launches lk_track={r['lk_track']}")
+        _require(r["ate"] < ATE_TOL_M, f"async_health {tag}: ATE {r['ate']:.4f} m")
+        _require(r["slam"].vi_initialized, f"async_health {tag}: VIInit never fired")
+        _require(r["slam"].n_resets == 0, f"async_health {tag}: the run reset")
+        _require(r["lk_track"] == (r["frames"] - 1) + int(r["is_kf"].sum())
+                 and r["lk_iterate"] == 0, f"async_health {tag}: {r['lk_track']} lk_track launches")
+        _require((r["lags"] > 0) == r["on"], f"async_health {tag}: {r['lags']} lagged frames")
+    same = all((r["is_kf"] == recs[0]["is_kf"]).all() for r in recs)
+    print(f"async_health: keyframe frames the same in all four runs: {same}")
+    return recs
+
+
+def phase_typed_modes(world, frames, device):
+    """Typed labels in the monocular classes: configs/euroc_mono with every
+    label on camera 0 of the main world with the coded pattern stamped (only
+    the ellipse channel builds with one camera), 40 frames, Sim3 ATE < 80 mm;
+    configs/nofov at phase_nofov's settings with every label (all four
+    channels build), 40 frames, tail segment scale within 0.75-1.3."""
+    from sadvio_tpu_torch.pipeline.config import FeatureConfig
+    from sadvio_tpu_torch.pipeline.nofov_mode import NoFovSLAM
+
+    feats = (FeatureConfig(),) + tuple(FeatureConfig(label=lb, pattern_side=PATTERN_SIDE)
+                                       for lb in TYPED_LABELS)
+    stamped = [f._replace(images=_stamp_pattern(world, i, f.images[0])[None])
+               for i, f in enumerate(frames[:TYPED_FRAMES])]
+    mono = run_mono(world, stamped, device, "euroc_mono", False, features=feats)
+    held = lambda slam: {type(c).__name__: int(c.mask.sum()) for c in slam.channels}
+    pid = mono["slam"].channels[0].patterns()[0].tolist() if mono["slam"].channels else []
+    _mode_summary("typed mono", mono, f" | Sim3 ATE {mono['ate_sim3'] * 1e3:.3f} mm, channels "
+                  f"{held(mono['slam'])}, pattern ids {pid}")
+    _require([type(c).__name__ for c in mono["slam"].channels] == ["EllipseChannel"],
+             "typed mono: one camera builds the ellipse channel only")
+    _require(mono["ate_sim3"] < MONO_ATE_TOL_M, f"typed mono: Sim3 ATE {mono['ate_sim3']:.4f} m")
+
+    nw, nframes = make_nofov_world(device, TYPED_FRAMES)
+    slam = NoFovSLAM(nw.rig, preset_config("nofov", max_movement_parallax=NOFOV_MAX_PARALLAX,
+                                           features=feats), device=device)
+    nofov = _drive_mode(slam, nframes)
+    seg = lambda p: np.linalg.norm(np.diff(p[-NOFOV_TAIL:], axis=0), axis=-1).sum()
+    tail = float(seg(nofov["est"]) / max(seg(nw.gt_t[: nofov["frames"]]), 1e-9))
+    _mode_summary("typed nofov", nofov, f" | tail segment scale {tail:.4f}, scale applied "
+                  f"{slam.scale_state['applied']}, channels {held(slam)}")
+    _require(len(slam.channels) == 4, "typed nofov: the four channels were not built")
+    _require(0.75 < tail < 1.3, f"typed nofov: tail scale {tail:.3f}")
+    _require(slam.n_resets == 0, "typed nofov: the run reset")
+    return {"mono": mono, "nofov": nofov}
+
+
 SHAPE_KEYS = ("ms", "profiler_ms", "host_us", "plain_ms", "bound_ms", "bound_by", "max_abs_err_uv",
               "max_abs_err_err")
 
@@ -2119,6 +2489,12 @@ def main():
     probe("phase_descriptors")
     euroc_rec = phase_euroc(world, frames, device, measure=measure)
     probe("phase_euroc")
+    phase_parallel(fused, frames, device)
+    probe("phase_parallel")
+    async_recs = phase_async_health(world, frames, device)
+    probe("phase_async_health")
+    typed = phase_typed_modes(world, frames, device)
+    probe("phase_typed_modes")
     lost = [after for after, seen, _ in probes if not seen]
     print(f"profiler probe: lk_track recorded after {sum(seen for _, seen, _ in probes)} of "
           f"{len(probes)} phases; first phase after which it was not: "
@@ -2168,6 +2544,9 @@ def main():
         "launches_line_run": lines["lk_track"],
         "launches_channel_runs": {k: r["lk_track"] for k, r in chans.items()},
         "launches_euroc_run": euroc_rec["lk_track"],
+        "launches_async_runs": {("on" if r["on"] else "off") + str(i): r["lk_track"]
+                                for i, r in enumerate(async_recs)},
+        "launches_typed_runs": {k: r["lk_track"] for k, r in typed.items()},
         "mono_frame": {k: mode_rows["mono_frame"][k] for k in SHAPE_KEYS},
         "nofov_refine": {k: mode_rows["nofov_refine"][k]
                          for k in (*SHAPE_KEYS, "rotation_deg")},

@@ -10,7 +10,10 @@ Reprojection Jacobians are hand-derived; the small factors (IMU, bias walk,
 priors) and the line rows are linearized with one ``torch.func.jacfwd``
 over the dense delta.
 LM uses deferred acceptance: one linearization per iteration serves as the
-acceptance cost and, if accepted, as the next normal equations.
+acceptance cost and, if accepted, as the next normal equations.  The
+linearization and the solve are split into landmark-local stages and
+reduced-system stages, which ``parallel/sharding.py`` reuses with its
+collectives between them.
 
 Normal equations: H dx = b with H = J^T W J, b = -J^T W r; eliminated
 landmarks dl = Hll^-1 (bl - Hpl^T dp).
@@ -55,6 +58,10 @@ class BAOptions(Struct):
     # line rows: whitened at sigma_line, along-line endpoint terms at w_along
     sigma_line: float = 1.0
     w_along: float = 0.3
+    # landmark-sharded solve (parallel/sharding.py): split the dense
+    # factors' residual rows over the lmk ranks, each forming J^T J and
+    # J^T r of its own rows before one all-reduce; no effect on one device
+    dense_shard: bool = False
 
 
 class BAProblem(NamedTuple):
@@ -208,18 +215,13 @@ def _huber_cost(r, m, d):
     return torch.sum(m * rho)
 
 
-def _linearize(problem: BAProblem, opts: BAOptions) -> _Lin:
-    state, obs, rig, imu, priors = problem[:5]
-    lines = problem.lines
-    K, C, L = obs.mask.shape
-    P = priors.P
-    M = 0 if lines is None else lines.M
-    KD, off_l = K * D, K * D + P * 3  # offsets of the retained and line blocks
-    Dd = off_l + M * 6
-    dt_, dev = state.lmk.dtype, state.lmk.device
-
+def _lmk_normal_eqs(state: WindowState, obs: Observations, rig: Rig, opts: BAOptions):
+    """The reprojection blocks of the normal equations and their Huber cost:
+    Hll (L,3,3) and bl (L,3) summed over keyframes and cameras, Hpl
+    (K,L,6,3), Hpp (K,6,6) and bp (K,6) summed over cameras and landmarks.
+    Landmark-local work: a landmark-sharded solve sums Hpp, bp and the cost
+    over its shards."""
     r, Jp, Jl, m, w = _reproj_terms(state, obs, rig, opts)
-    slot = slot_of_lmk(priors, L)
     wJl = w[..., None, None] * Jl
     Hll = torch.einsum("kclai,kclaj->lij", wJl, Jl)
     bl = -torch.einsum("kclai,kcla->li", wJl, r)
@@ -227,14 +229,27 @@ def _linearize(problem: BAProblem, opts: BAOptions) -> _Lin:
     Hpl = torch.einsum("kclai,kclaj->klij", wJp, Jl)
     Hpp = torch.einsum("kclai,kclaj->kij", wJp, Jp)
     bp = -torch.einsum("kclai,kcla->ki", wJp, r)
+    return Hll, bl, Hpl, Hpp, bp, _huber_cost(r, m, opts.huber)
 
-    S = ((slot[:, None] == torch.arange(P, device=dev)[None, :])
-         & state.lmk_mask[:, None]).to(dt_)
-    Hll_ret = torch.einsum("lp,lij->pij", S, Hll)
-    bl_ret = torch.einsum("lp,li->pi", S, bl)
-    Hx = torch.einsum("lp,klij->kpij", S, Hpl)  # (K,P,6,3)
 
-    pl0 = _retained_lmk(state, priors)
+def _retained_blocks(slot, lmk_mask, P: int, Hll, bl, Hpl):
+    """The prior-retained landmarks' blocks gathered into their P slots:
+    Hll_ret (P,3,3), bl_ret (P,3), Hx (K,P,6,3) (sums over L)."""
+    S = ((slot[:, None] == torch.arange(P, device=slot.device)[None, :])
+         & lmk_mask[:, None]).to(Hll.dtype)
+    return (torch.einsum("lp,lij->pij", S, Hll), torch.einsum("lp,li->pi", S, bl),
+            torch.einsum("lp,klij->kpij", S, Hpl))
+
+
+def _dense_jac(problem: BAProblem, pl0, opts: BAOptions):
+    """The small factors' (and the line rows') residual vector and its
+    Jacobian over the dense delta [K*D + P*3 + M*6], one ``jacfwd``, with the
+    retained landmarks (P,3) at ``pl0``."""
+    state, rig, imu, priors = problem.state, problem.rig, problem.imu, problem.priors
+    lines = problem.lines
+    K, P = state.K, priors.P
+    M = 0 if lines is None else lines.M
+    KD, off_l = K * D, K * D + P * 3
     W_imu = imu_mod.sqrt_info(imu.pre)
 
     def rfun(dxd):
@@ -251,12 +266,14 @@ def _linearize(problem: BAProblem, opts: BAOptions) -> _Lin:
         return torch.cat([r_small, _line_residual_rows(Rk, tk, state.kf_mask, ends, lines,
                                                        rig, opts)])
 
-    dx0 = torch.zeros(Dd, dtype=dt_, device=dev)
-    r_dense = rfun(dx0)
-    J = torch.func.jacfwd(rfun)(dx0)
-    H = J.T @ J
-    b = -J.T @ r_dense
+    dx0 = torch.zeros(off_l + M * 6, dtype=state.lmk.dtype, device=state.lmk.device)
+    return rfun(dx0), torch.func.jacfwd(rfun)(dx0)
 
+
+def _assemble(H, b, K: int, P: int, Hpp, bp, Hll_ret, bl_ret, Hx):
+    """Scatter the reprojection blocks into the dense system (in place)."""
+    KD, off_l = K * D, K * D + P * 3
+    dt_, dev = H.dtype, H.device
     eyeK = torch.eye(K, dtype=dt_, device=dev)
     H4 = H[:KD, :KD].reshape(K, D, K, D).clone()
     H4[:, :6, :, :6] += (Hpp[:, None] * eyeK[:, :, None, None]).transpose(1, 2)
@@ -273,40 +290,52 @@ def _linearize(problem: BAProblem, opts: BAOptions) -> _Lin:
     Hc2 = Hc.reshape(KD, P * 3)
     H[:KD, KD:off_l] = Hc2
     H[KD:off_l, :KD] = Hc2.T
-
-    cost = _huber_cost(r, m, opts.huber) + torch.sum(r_dense * r_dense)
-    return _Lin(Hll, bl, Hpl, Hpp, bp, H, b, cost)
+    return H, b
 
 
-def _solve_from_lin(lin: _Lin, problem: BAProblem, opts: BAOptions, free, lam):
-    """Damp + Schur-eliminate + Cholesky-solve the cached normal equations."""
-    state, priors = problem.state, problem.priors
-    K, L, P = state.K, state.L, priors.P
-    KD = K * D
-    Dd = lin.H.shape[0]
-    dt_, dev = state.lmk.dtype, state.lmk.device
+def _linearize(problem: BAProblem, opts: BAOptions) -> _Lin:
+    state, obs, rig, _, priors = problem[:5]
+    K, _, L = obs.mask.shape
+    P = priors.P
+    Hll, bl, Hpl, Hpp, bp, c_reproj = _lmk_normal_eqs(state, obs, rig, opts)
+    Hll_ret, bl_ret, Hx = _retained_blocks(slot_of_lmk(priors, L), state.lmk_mask, P, Hll, bl,
+                                           Hpl)
+    r_dense, J = _dense_jac(problem, _retained_lmk(state, priors), opts)
+    H, b = _assemble(J.T @ J, -J.T @ r_dense, K, P, Hpp, bp, Hll_ret, bl_ret, Hx)
+    return _Lin(Hll, bl, Hpl, Hpp, bp, H, b, c_reproj + torch.sum(r_dense * r_dense))
 
-    elim = state.lmk_mask & ~(slot_of_lmk(priors, L) < P)
-    em = elim.to(dt_)
-    Hll_e = lin.Hll * em[:, None, None]
-    bl_e = lin.bl * em[:, None]
-    Hpl_e = lin.Hpl * em[None, :, None, None]
+
+def _schur_terms(Hll, bl, Hpl, elim, lam, opts: BAOptions):
+    """LM-damped elimination of the ``elim`` landmarks: Hll_inv, bl_e, Hpl_e
+    and the reduced-system corrections Hred_corr (K,K,6,6), bred_corr (K,6)
+    (sums over L)."""
+    em = elim.to(Hll.dtype)
+    Hll_e = Hll * em[:, None, None]
+    bl_e = bl * em[:, None]
+    Hpl_e = Hpl * em[None, :, None, None]
     dll = torch.abs(torch.diagonal(Hll_e, dim1=-2, dim2=-1))
     damp = lam * dll + opts.jitter + (1.0 - em[:, None])
     Hll_inv = geo.inv3x3(Hll_e + torch.diag_embed(damp)) * em[:, None, None]
     W_kl = torch.einsum("klij,ljm->klim", Hpl_e, Hll_inv)
     Hred_corr = -torch.einsum("klab,qlcb->kqac", W_kl, Hpl_e)  # (K,K,6,6)
     bred_corr = -torch.einsum("klab,lb->ka", W_kl, bl_e)
+    return Hll_inv, bl_e, Hpl_e, Hred_corr, bred_corr
 
-    H = lin.H.clone()
+
+def _reduced_step(H, b, Hred_corr, bred_corr, free, lam, opts: BAOptions):
+    """Add the Schur corrections to the dense system, freeze masked dims,
+    Jacobi-equilibrate, damp and Cholesky-solve: (dxd, ok)."""
+    K = Hred_corr.shape[0]
+    KD = K * D
+    Dd = H.shape[0]
+    H = H.clone()
     H4 = H[:KD, :KD].reshape(K, D, K, D).clone()
     H4[:, :6, :, :6] += Hred_corr.transpose(1, 2)
     H[:KD, :KD] = H4.reshape(KD, KD)
-    b = lin.b.clone()
+    b = b.clone()
     b[:KD] += torch.cat([bred_corr, bred_corr.new_zeros((K, D - 6))], 1).reshape(-1)
 
-    # freeze masked dims, Jacobi-equilibrate, multiplicative LM damping
-    eye = torch.eye(Dd, dtype=dt_, device=dev)
+    eye = torch.eye(Dd, dtype=H.dtype, device=H.device)
     Hm = H * free[:, None] * free[None, :] + eye * (1.0 - free)
     bm = b * free
     s = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(Hm), min=1e-10))
@@ -315,13 +344,26 @@ def _solve_from_lin(lin: _Lin, problem: BAProblem, opts: BAOptions, free, lam):
     ok = (info == 0) & torch.isfinite(Lc).all()
     Lc = torch.where(ok, Lc, eye)
     y = torch.cholesky_solve((bm * s)[:, None], Lc)[:, 0]
-    dxd = torch.where(ok, y * s, torch.zeros_like(y)) * free
+    return torch.where(ok, y * s, torch.zeros_like(y)) * free, ok
 
-    dpose = dxd[:KD].reshape(K, D)[:, :6]
+
+def _back_substitute(Hll_inv, bl_e, Hpl_e, dxd, elim):
+    """The eliminated landmarks' step from the keyframes' pose step."""
+    K = Hpl_e.shape[0]
+    dpose = dxd[:K * D].reshape(K, D)[:, :6]
     rhs = bl_e - torch.einsum("klij,ki->lj", Hpl_e, dpose)
     dl = torch.einsum("lij,lj->li", Hll_inv, rhs)
-    dl = torch.where(elim[:, None], dl, torch.zeros_like(dl))
-    return dxd, dl, ok
+    return torch.where(elim[:, None], dl, torch.zeros_like(dl))
+
+
+def _solve_from_lin(lin: _Lin, problem: BAProblem, opts: BAOptions, free, lam):
+    """Damp + Schur-eliminate + Cholesky-solve the cached normal equations."""
+    state, priors = problem.state, problem.priors
+    elim = state.lmk_mask & ~(slot_of_lmk(priors, state.L) < priors.P)
+    Hll_inv, bl_e, Hpl_e, Hred_corr, bred_corr = _schur_terms(lin.Hll, lin.bl, lin.Hpl, elim,
+                                                              lam, opts)
+    dxd, ok = _reduced_step(lin.H, lin.b, Hred_corr, bred_corr, free, lam, opts)
+    return dxd, _back_substitute(Hll_inv, bl_e, Hpl_e, dxd, elim), ok
 
 
 def _lm_step(problem: BAProblem, opts: BAOptions, free, lam):
@@ -358,7 +400,11 @@ def robust_cost(problem: BAProblem, opts: BAOptions):
     return cost
 
 
-def _ba_solve_impl(problem: BAProblem, opts: BAOptions, n_iters: int):
+def _lm(problem: BAProblem, opts: BAOptions, n_iters: int, linearize, solve, retract):
+    """Levenberg-Marquardt with deferred acceptance over the given stages:
+    ``linearize(problem) -> _Lin``, ``solve(lin, problem, free, lam) ->
+    (dxd, dl, ok)`` and ``retract(state, dxd, dl) -> state``.  The step is
+    accepted when the trial's cost, from its linearization, is lower."""
     free = _free_mask(problem)
     lines = problem.lines
     off_l = problem.state.K * D + problem.priors.P * 3
@@ -367,21 +413,20 @@ def _ba_solve_impl(problem: BAProblem, opts: BAOptions, n_iters: int):
         prob = problem._replace(state=state)
         return prob if lines is None else prob._replace(lines=lines.replace(ends=ends))
 
-    lin = _linearize(problem, opts)
+    lin = linearize(problem)
     cost0 = lin.cost
     state, cost = problem.state, cost0
     ends = None if lines is None else lines.ends
     lam = torch.tensor(opts.lam_init, dtype=state.lmk.dtype, device=state.lmk.device)
     costs, accepts = [], []
     for _ in range(n_iters):
-        dxd, dl, ok = _solve_from_lin(lin, at(state, ends), opts, free, lam)
-        trial = _apply_dense_delta(state, problem.priors, dxd)
-        trial = trial.replace(lmk=trial.lmk + dl)
+        dxd, dl, ok = solve(lin, at(state, ends), free, lam)
+        trial = retract(state, dxd, dl)
         ends_t = ends
         if lines is not None:
             de = dxd[off_l:].reshape(ends.shape)
             ends_t = ends + torch.where(lines.mask[:, None, None], de, torch.zeros_like(de))
-        lin_t = _linearize(at(trial, ends_t), opts)
+        lin_t = linearize(at(trial, ends_t))
         accept = ok & torch.isfinite(lin_t.cost) & (lin_t.cost < cost)
         state = select(accept, trial, state)
         if lines is not None:
@@ -397,6 +442,15 @@ def _ba_solve_impl(problem: BAProblem, opts: BAOptions, n_iters: int):
     if lines is not None:
         stats["line_ends"] = ends
     return state, stats
+
+
+def _ba_solve_impl(problem: BAProblem, opts: BAOptions, n_iters: int):
+    def retract(state, dxd, dl):
+        trial = _apply_dense_delta(state, problem.priors, dxd)
+        return trial.replace(lmk=trial.lmk + dl)
+
+    return _lm(problem, opts, n_iters, lambda prob: _linearize(prob, opts),
+               lambda lin, prob, free, lam: _solve_from_lin(lin, prob, opts, free, lam), retract)
 
 
 def ba_solve(problem: BAProblem, opts: BAOptions):

@@ -1,11 +1,18 @@
 """On-manifold IMU preintegration (Forster style) on tensors.
 
-Port of the main-path subset of ``sadvio_tpu/models/imu.py``.  The JAX
-package integrates with a masked ``lax.scan``; here the per-sample terms
-that do not depend on the running state (bias-corrected rates, the
-incremental rotations and their right Jacobians) are computed for the whole
-buffer at once and the recursion is a Python loop.  Samples with dt == 0
-stay strict no-ops, as in the reference.
+Port of ``sadvio_tpu/models/imu.py``.  The JAX package integrates with a
+masked ``lax.scan``; here the per-sample terms that do not depend on the
+running state (bias-corrected rates, the incremental rotations and their
+right Jacobians) are computed for the whole buffer at once and the
+recursion is a Python loop.  Samples with dt == 0 stay strict no-ops, as in
+the reference.
+
+``chunk_summary`` / ``combine_summary`` / ``preintegrate_assoc`` are the
+log-depth form of the same recursion: a chunk of samples reduces to a
+``ChunkSummary`` by three associative scans, and summaries of adjacent
+chunks compose, which is what shards the IMU stream along time
+(``parallel/time_sharding.py``).  The pipeline integrates with the
+sequential ``preintegrate``, as the JAX pipeline does.
 """
 
 from __future__ import annotations
@@ -119,6 +126,152 @@ def preintegrate(acc, gyr, dt, ba, bg, params: ImuParams, init: Preintegration |
         )
         s = select(active[i], new, s)
     return s
+
+
+@dataclass
+class ChunkSummary(Struct):
+    """Preintegration of a contiguous sample chunk, closed under composition.
+
+    Besides the chunk's deltas, covariance and stacked bias Jacobians it
+    carries the products of its per-sample linear transitions, M9
+    (covariance) and M15 (bias Jacobians), so that two adjacent chunks
+    compose with ``combine_summary``."""
+
+    dR: torch.Tensor  # (3,3) delta rotation over the chunk
+    dv: torch.Tensor  # (3,)
+    dp: torch.Tensor  # (3,)
+    dt: torch.Tensor  # () chunk duration
+    M9: torch.Tensor  # (9,9) product of the covariance transitions
+    cov: torch.Tensor  # (9,9) chunk covariance from a zero start
+    M15: torch.Tensor  # (15,15) product of the bias-Jacobian transitions
+    X: torch.Tensor  # (15,3) [J_dR_bg; J_dv_ba; J_dv_bg; J_dp_ba; J_dp_bg]
+
+
+def _block_diag3(blocks):
+    """(...,3n,3n) block-diagonal matrix of n (...,3,3) blocks."""
+    n = len(blocks)
+    z3 = torch.zeros_like(blocks[0])
+    return torch.cat([torch.cat([b if j == i else z3 for j in range(n)], -1)
+                      for i, b in enumerate(blocks)], -2)
+
+
+def combine_summary(a: ChunkSummary, b: ChunkSummary) -> ChunkSummary:
+    """Compose chunk ``a`` (earlier) with chunk ``b`` (later); associative.
+
+    ``b``'s transitions were built with prefix rotations local to its own
+    start; in the joined stream each carries the extra left rotation
+    ``a.dR``: A_global = G A_local G^T with G = diag(I, a.dR, a.dR) for the
+    covariance and diag(I, a.dR x4) for the bias Jacobians.  ``b``'s products
+    and covariance are conjugated into the joined frame before the affine
+    composition.  Batched over leading dims."""
+    eye3 = torch.eye(3, dtype=a.dR.dtype, device=a.dR.device).expand_as(a.dR)
+    G9 = _block_diag3([eye3, a.dR, a.dR])
+    G15 = _block_diag3([eye3, a.dR, a.dR, a.dR, a.dR])
+    M9b = G9 @ b.M9 @ G9.transpose(-1, -2)
+    M15b = G15 @ b.M15 @ G15.transpose(-1, -2)
+    return ChunkSummary(
+        dR=a.dR @ b.dR, dv=a.dv + geo.mv(a.dR, b.dv),
+        dp=a.dp + a.dv * b.dt[..., None] + geo.mv(a.dR, b.dp), dt=a.dt + b.dt,
+        M9=M9b @ a.M9,
+        cov=M9b @ a.cov @ M9b.transpose(-1, -2) + G9 @ b.cov @ G9.transpose(-1, -2),
+        M15=M15b @ a.M15, X=M15b @ a.X + G15 @ b.X)
+
+
+def summary_to_preintegration(s: ChunkSummary, ba, bg) -> Preintegration:
+    return Preintegration(dR=s.dR, dv=s.dv, dp=s.dp, cov=s.cov, J_dR_bg=s.X[..., 0:3, :],
+                          J_dv_ba=s.X[..., 3:6, :], J_dv_bg=s.X[..., 6:9, :],
+                          J_dp_ba=s.X[..., 9:12, :], J_dp_bg=s.X[..., 12:15, :],
+                          dt=s.dt, ba_lin=ba, bg_lin=bg)
+
+
+def associative_scan(combine, elems):
+    """Inclusive scan of ``combine`` over the leading axis of every tensor in
+    the tuple ``elems``, for any length N, in ceil(log2 N) steps
+    (Hillis-Steele): step d combines element i - d with element i for all
+    i >= d in one batched call.  ``combine(a, b)`` takes the earlier
+    elements first and must be associative."""
+    n = elems[0].shape[0]
+    d = 1
+    while d < n:
+        new = combine(tuple(x[:-d] for x in elems), tuple(x[d:] for x in elems))
+        elems = tuple(torch.cat([x[:d], y]) for x, y in zip(elems, new))
+        d *= 2
+    return elems
+
+
+def _combine_delta(ea, eb):
+    """The group law of (R, v, p, t)."""
+    Ra, va, pa, ta = ea
+    Rb, vb, pb, tb = eb
+    return Ra @ Rb, va + geo.mv(Ra, vb), pa + va * tb[:, None] + geo.mv(Ra, pb), ta + tb
+
+
+def _combine_cov(ea, eb):
+    """Affine pairs (M, C) of Sigma_k = M_k Sigma_{k-1} M_k^T + C_k."""
+    Ma, Ca = ea
+    Mb, Cb = eb
+    return Mb @ Ma, Mb @ Ca @ Mb.transpose(-1, -2) + Cb
+
+
+def _combine_affine(ea, eb):
+    """Affine pairs (M, c) of X_k = M_k X_{k-1} + c_k."""
+    Ma, ca = ea
+    Mb, cb = eb
+    return Mb @ Ma, Mb @ ca + cb
+
+
+def chunk_summary(acc, gyr, dt, ba, bg, params: ImuParams) -> ChunkSummary:
+    """Composable summary of one sample chunk (see ``ChunkSummary``), by three
+    associative scans: the delta group law (whose prefix rotations feed the
+    linearized passes), the 9x9 covariance affine pair and the 15x3 stacked
+    bias-Jacobian affine pair.  Padding samples (dt == 0) are the group's
+    and the affine maps' identities."""
+    dtype, dev = acc.dtype, acc.device
+    n = acc.shape[0]
+    active = dt > 0.0
+    h = torch.where(active, dt, torch.zeros_like(dt))
+    hs = torch.where(active, dt, torch.ones_like(dt))
+    a_c = acc - ba
+    wdt = (gyr - bg) * h[:, None]
+    dR_inc = geo.so3_exp(wdt)
+    Jr = geo.so3_right_jacobian(wdt)
+
+    pR, pv, pp, pt = associative_scan(
+        _combine_delta, (dR_inc, a_c * h[:, None], 0.5 * a_c * (h * h)[:, None], h))
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    dR_prev = torch.cat([eye3[None], pR[:-1]])  # the rotation before each sample
+
+    Ra = dR_prev @ geo.skew(a_c)
+    h1 = h[:, None, None]
+    dR_incT = dR_inc.transpose(-1, -2)
+    eyes = eye3.expand(n, 3, 3)
+    z3 = torch.zeros((n, 3, 3), dtype=dtype, device=dev)
+
+    def blocks(rows):
+        return torch.cat([torch.cat(r, -1) for r in rows], -2)
+
+    A = blocks([[dR_incT, z3, z3], [-Ra * h1, eyes, z3],
+                [-0.5 * Ra * h1 * h1, eyes * h1, eyes]])
+    B = blocks([[Jr * h1, z3], [z3, dR_prev * h1], [z3, 0.5 * dR_prev * h1 * h1]])
+    q = torch.cat([(params.gyr_noise ** 2 / hs)[:, None].expand(n, 3),
+                   (params.acc_noise ** 2 / hs)[:, None].expand(n, 3)], 1)
+    C = (B * q[:, None, :]) @ B.transpose(-1, -2)
+    M9s, covs = associative_scan(_combine_cov, (A, C))
+
+    # X = [J_dR_bg; J_dv_ba; J_dv_bg; J_dp_ba; J_dp_bg], (15,3)
+    M = blocks([[dR_incT, z3, z3, z3, z3], [z3, eyes, z3, z3, z3], [-Ra * h1, z3, eyes, z3, z3],
+                [z3, eyes * h1, z3, eyes, z3], [-0.5 * Ra * h1 * h1, z3, eyes * h1, z3, eyes]])
+    c = torch.cat([-Jr * h1, -dR_prev * h1, z3, -0.5 * dR_prev * h1 * h1, z3], 1)
+    M15s, Xs = associative_scan(_combine_affine, (M, c))
+    return ChunkSummary(dR=pR[-1], dv=pv[-1], dp=pp[-1], dt=pt[-1], M9=M9s[-1], cov=covs[-1],
+                        M15=M15s[-1], X=Xs[-1])
+
+
+def preintegrate_assoc(acc, gyr, dt, ba, bg, params: ImuParams):
+    """``preintegrate`` in O(log N) depth: ``chunk_summary`` of the whole
+    buffer as a ``Preintegration``.  Same deltas, covariance and bias
+    Jacobians up to float reassociation."""
+    return summary_to_preintegration(chunk_summary(acc, gyr, dt, ba, bg, params), ba, bg)
 
 
 def bias_corrected_deltas(pre: Preintegration, ba, bg):

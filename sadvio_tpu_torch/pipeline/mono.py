@@ -16,7 +16,10 @@ front end and back end of ``StereoSLAM``; what changes:
   velocities, biases and the scale, and rescales the map.
 
 As in the JAX package, the mono modes have no descriptor global map
-(``global_map_state`` stays None whatever the config says).
+(``global_map_state`` stays None whatever the config says), and typed
+labels build through ``StereoSLAM``'s dispatch with the rig's camera
+count: with one camera only ``ellipsepatternxd`` builds, and the csv point
+detector is read and unused (keyframe insertion detects its own points).
 """
 
 from __future__ import annotations
@@ -36,7 +39,6 @@ class MonoSLAM(StereoSLAM):
     """Monocular VO / VIO on one device (None: the CUDA card)."""
 
     MODES = ("mono", "monovio")
-    TYPED_FEATURES = False  # the typed channels are ported in the stereo class only
     PROFILE_BOOTSTRAP = False  # as in the JAX package, the bootstrap frames are not timed
 
     def __init__(self, rig, config, imu_params=None, seed=0, device=None,

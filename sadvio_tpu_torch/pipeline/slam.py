@@ -44,9 +44,11 @@ solves the scale too) and ``_last_pyr`` (the latest frame's pyramids).
 ``optimizer: angular*`` switches the window BA to the bearing-vector
 residual.  ``multithreading`` runs the window BA on a second CUDA stream
 (``parallel/pipeline_parallel.py``).  ``run(frames, log_dir, profile)``
-times the stages and writes ``log_slam/`` (``write_logs``).  Config keys for
-parts that are not ported yet raise NotImplementedError: ``async_health``,
-and typed features in the mono and nofov classes (``TYPED_FEATURES``).
+times the stages and writes ``log_slam/`` (``write_logs``).  ``async_health``
+harvests each frame's health vector one frame late: its device-to-host copy
+is started at frame k and read at frame k+1, the keyframe vote runs on the
+stale health as a candidate gate, and a candidate is confirmed against the
+frame's own health (a blocking read at candidate rate only).
 """
 
 from __future__ import annotations
@@ -98,22 +100,17 @@ class TrackState(Struct):
 CSV_DETECTORS = ("csv", "cvcsv")
 
 
-def _check_config(cfg: SLAMConfig, modes, typed_features: bool):
+def _check_config(cfg: SLAMConfig, modes):
     """Refuse a slam_mode outside ``modes`` (the class's own) and the config
-    keys whose code paths are not ported yet; typed features (any label
-    beyond plain pointxd) only where ``typed_features``."""
+    values that the JAX package does not dispatch either."""
     todo = {
         "slam_mode": cfg.slam_mode not in modes,
-        "async_health": cfg.async_health,
         "tracker": cfg.tracker not in ("klt", "matcher"),
         "pose_estimator": not cfg.pose_estimator.lower().startswith(("pnp", "epipolar")),
-        "features": not typed_features and any(
-            f.label.lower() != "pointxd" or f.detector.lower() in CSV_DETECTORS
-            for f in cfg.features),
     }
     bad = [k for k, v in todo.items() if v]
     if bad:
-        raise NotImplementedError(f"config keys not ported yet: {', '.join(bad)}")
+        raise NotImplementedError(f"config values not supported: {', '.join(bad)}")
 
 
 def _set(x, i, val):
@@ -121,6 +118,27 @@ def _set(x, i, val):
     x = x.clone()
     x[i] = val
     return x
+
+
+def _next_pinned(pins, dtype, shape):
+    """The next of the two pinned host buffers in ``pins`` (a list of two
+    (buffer, event) slots used in turn), once the copy recorded behind its
+    last use has finished; a buffer of another shape or dtype is replaced."""
+    pins[:] = pins[1:] + pins[:1]
+    buf, done = pins[0] or (None, None)
+    if done is not None:
+        done.synchronize()
+    if buf is None or tuple(buf.shape) != tuple(shape) or buf.dtype != dtype:
+        buf = torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+    return buf
+
+
+def _mark_pinned(pins, buf):
+    """Record the event behind the copy just queued from or into ``buf``."""
+    done = torch.cuda.Event()
+    done.record()
+    pins[0] = (buf, done)
+    return done
 
 
 def _odometry_edges(poses, covs):
@@ -135,11 +153,10 @@ class StereoSLAM:
     """Stereo VO / stereo VIO pipeline on one device (None: the CUDA card)."""
 
     MODES = ("bimono", "bimonovio")  # the slam_mode values this class runs
-    TYPED_FEATURES = True  # features_handled beyond plain pointxd are ported here
     PROFILE_BOOTSTRAP = True  # run(profile=True) times the bootstrap frames' stages too
 
     def __init__(self, rig: Rig, config: SLAMConfig, imu_params=None, seed=0, device=None):
-        _check_config(config, self.MODES, self.TYPED_FEATURES)
+        _check_config(config, self.MODES)
         self.device = entry_device(device)
         self.klt_engine = "fused"  # klt.track engine: "fused" | "levels"
         self.rig = rig.to(self.device)
@@ -169,12 +186,12 @@ class StereoSLAM:
         # frame-rate VIO rows (ts, t, v, ba, bg), the vio_poses.csv layout;
         # ba and bg are the host copies refreshed at each keyframe
         self.vio_log = []
-        self._last_health = None  # (ts, health) of the last ingested frame
         # drive(): upload the next frame's images during this one; off, as it
         # did not pay on the card (PERF.md §5)
         self.prefetch = False
         self._prefetched = None  # the next frame's device images, from process_frame
         self._pins = [None, None]  # two pinned upload buffers, used in turn
+        self._hbufs = [None, None]  # two pinned health buffers, used in turn
         self._prof = None  # the Profiler of a run(profile=True)
         # multithreading: the window BA on a second CUDA stream
         self.backend_exec = BackendExecutor(self.device) if config.multithreading else None
@@ -254,6 +271,14 @@ class StereoSLAM:
         self._have_priors = False
         self._ba_h = np.zeros(3)
         self._bg_h = np.zeros(3)
+        # health: the last ingested (ts, health); with async_health the
+        # pending (ts, fetch) of the frame before, the flag that forces one
+        # blocking read after a keyframe changed the template, and the
+        # previous stale parallax (the vote's one-step extrapolation)
+        self._last_health = None
+        self._health_pend = None
+        self._health_stale = False
+        self._par_prev = None
 
     # ------------------------------------------------------------------
     # stages
@@ -634,6 +659,43 @@ class StereoSLAM:
         w = v / s * np.arctan2(s, float(np.dot(a, z)))
         return geo.so3_exp(torch.as_tensor(w, dtype=torch.float32, device=self.device)).T
 
+    def _health_copy(self, health):
+        """Start the device-to-host copy of a frame's health vector and return
+        the fetch for ``_read_health``.  On the card the copy goes into one
+        of two pinned host buffers, used in turn, with ``non_blocking=True``
+        and an event behind it; a buffer is refilled only once the event of
+        its previous copy has fired."""
+        if self.device.type != "cuda":
+            return health, None
+        buf = _next_pinned(self._hbufs, health.dtype, health.shape)
+        buf.copy_(health, non_blocking=True)
+        return buf, _mark_pinned(self._hbufs, buf)
+
+    def _read_health(self, fetch):
+        """The health vector of a fetch, on the host; waits for its copy."""
+        buf, done = fetch
+        if done is not None:
+            done.synchronize()
+        return buf.numpy().copy()
+
+    def _health_to_out(self, out):
+        """The per-frame output from the last ingested health; ``pose_ts`` is
+        the frame's own stamp unless the health lags by one frame."""
+        ts_h, health_h = self._last_health
+        out.update(pose=(health_h[4:13].reshape(3, 3).copy(), health_h[13:16].copy()),
+                   pose_ts=ts_h, pnp_ok=bool(health_h[0] > 0.5), n_tracked=int(health_h[2]),
+                   n_lmk_tracked=int(health_h[3]), parallax_deg=float(health_h[1]))
+        return ts_h, health_h
+
+    def _flush_health(self):
+        """Ingest a still-pending async health fetch (the last frame's
+        trajectory and log rows): at run end, before the logs are written,
+        before a reset and before a checkpoint."""
+        if self._health_pend is not None:
+            ts, fetch = self._health_pend
+            self._health_pend = None
+            self._ingest_health(ts, self._read_health(fetch))
+
     def _ingest_health(self, ts, health_h):
         pnp_ok = bool(health_h[0] > 0.5)
         self.successive_fails = 0 if pnp_ok else self.successive_fails + 1
@@ -704,18 +766,10 @@ class StereoSLAM:
         imgs = np.ascontiguousarray(frame.images)
         if self.device.type != "cuda":
             return torch.as_tensor(imgs.copy(), device=self.device)
-        self._pins = self._pins[1:] + self._pins[:1]
-        buf, done = self._pins[0] or (None, None)
-        if done is not None:
-            done.synchronize()  # the copy that last read this buffer has finished
-        if buf is None or tuple(buf.shape) != imgs.shape or buf.numpy().dtype != imgs.dtype:
-            buf = torch.from_numpy(imgs).pin_memory()
-        else:
-            buf.numpy()[...] = imgs
+        buf = _next_pinned(self._pins, torch.from_numpy(imgs).dtype, imgs.shape)
+        buf.numpy()[...] = imgs
         out = buf.to(self.device, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        self._pins[0] = (buf, done)
+        _mark_pinned(self._pins, buf)
         return out
 
     def process_frame(self, frame, images_dev=None, prefetch_frame=None) -> dict:
@@ -757,18 +811,28 @@ class StereoSLAM:
             self.R_cur, self.t_cur, kf_tmpl=self.kf_tmpl,
             eskf_on=bool(self.vi_initialized and self._imu_n > 0),
             pre_cov=self.pre_cur.cov if self.vio else None)
-        health_h = health.cpu().numpy()  # the frame's one device-to-host copy
-        self._ingest_health(frame.ts, health_h)
+        # the health vector: the frame's one device-to-host copy.  With
+        # async_health (not under a profiler) it is read one frame late, so
+        # no frame waits for its own front end; the first tracked frame and
+        # the first after a keyframe (whose parallax was measured against
+        # the old template) read their own at once
+        fetch = self._health_copy(health)
+        if self.cfg.async_health and prof is None:
+            pend, self._health_pend = self._health_pend, (frame.ts, fetch)
+            if pend is not None:
+                self._ingest_health(pend[0], self._read_health(pend[1]))
+            if self._health_stale or self._last_health is None:
+                self._ingest_health(frame.ts, self._read_health(fetch))
+                self._health_pend = None
+                self._health_stale = False
+        else:
+            self._ingest_health(frame.ts, self._read_health(fetch))
+            self._health_pend = None
         if prof:
             prof.toc("track_predict_filter")  # the health copy waited for it
         self.dT = (dR_cv, dt_cv)
         self.R_cur, self.t_cur, self.v_cur = R_new, t_new, v_pred
-        pnp_ok_h = bool(health_h[0] > 0.5)
-        parallax_h = float(health_h[1])
-        n_lmk_h = int(health_h[3])
-        out.update(pose=(self.traj[-1][1], self.traj[-1][2]), pnp_ok=pnp_ok_h,
-                   n_tracked=int(health_h[2]), n_lmk_tracked=n_lmk_h,
-                   parallax_deg=parallax_h)
+        ts_h, health_h = self._health_to_out(out)
 
         if self.successive_fails > 5:  # failure recovery
             self.reset()
@@ -778,14 +842,41 @@ class StereoSLAM:
         dt_kf = frame.ts - self.kf_ts[-1] if self.kf_ts else 0.0
         force_time = self.vio and dt_kf > 1.0
         force_boot = self.n_kf < self.cfg.min_kf_number
-        force_kf = (not pnp_ok_h) or n_lmk_h < self.cfg.min_lmk_number
-        vote_kf = parallax_h > self.cfg.max_movement_parallax
-        is_kf = (not pnp_ok_h) or force_time or force_boot or (
-            (force_kf or vote_kf) and parallax_h >= self.cfg.min_movement_parallax)
+
+        def kf_vote(health_h, parallax_h):
+            pnp_ok_h = bool(health_h[0] > 0.5)
+            force_kf = (not pnp_ok_h) or int(health_h[3]) < self.cfg.min_lmk_number
+            vote_kf = parallax_h > self.cfg.max_movement_parallax
+            return (not pnp_ok_h) or force_time or force_boot or (
+                (force_kf or vote_kf) and parallax_h >= self.cfg.min_movement_parallax)
+
+        if ts_h != frame.ts:
+            # the health is the frame before's: the vote on it is only a
+            # candidate gate, with the parallax extrapolated by 1.5x its last
+            # rise so that threshold crossings surface on time; a candidate
+            # is confirmed against this frame's own health
+            par_stale = parallax_h = float(health_h[1])
+            if self._par_prev is not None:
+                parallax_h += 1.5 * max(parallax_h - self._par_prev, 0.0)
+            self._par_prev = par_stale
+            is_kf = kf_vote(health_h, parallax_h)
+            if is_kf:
+                self._ingest_health(frame.ts, self._read_health(fetch))
+                self._health_pend = None
+                self._par_prev = None
+                _, health_h = self._health_to_out(out)
+                is_kf = kf_vote(health_h, float(health_h[1]))
+        else:
+            self._par_prev = None
+            is_kf = kf_vote(health_h, float(health_h[1]))
         if not is_kf:
             return out
 
         out["is_kf"] = True
+        # the tracking template changes below: the next vote must not run on
+        # health measured against the old one
+        self._health_stale = True
+        self._par_prev = None
         K = self.caps.K
         n_ovf = torch.zeros((), dtype=torch.int64, device=dev)
         degen = torch.zeros((), dtype=torch.bool, device=dev)
@@ -1121,7 +1212,9 @@ class StereoSLAM:
         ``global_map`` the live local map is pushed into the archive first
         (the freshest good landmarks are what a relocalization needs), the
         window keyframes join the archived trajectory, and the archived
-        landmarks anchor at the last of them."""
+        landmarks anchor at the last of them.  A pending health fetch (the
+        last frame's rows) is ingested first."""
+        self._flush_health()
         if self.global_map_state is not None and self.n_kf > 0:
             poses = self._window_poses()
             self.archived_kf.extend(poses)
@@ -1176,6 +1269,7 @@ class StereoSLAM:
         if profile or log_dir:
             self._prof = Profiler()
         n = self.drive(frames)
+        self._flush_health()
         if log_dir:
             self.write_logs(log_dir, n_frames=n)
         return np.asarray([t for _, _, t in self.traj])
@@ -1217,6 +1311,7 @@ class StereoSLAM:
         loop, not only run()."""
         from sadvio_tpu_torch.pipeline.euroc import write_results_csv, write_vio_csv
 
+        self._flush_health()
         os.makedirs(log_dir, exist_ok=True)
         write_results_csv(os.path.join(log_dir, "results.csv"), self.kf_traj)
         if self.cfg.pose_graph:

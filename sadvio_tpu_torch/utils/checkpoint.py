@@ -122,6 +122,8 @@ def _file_shape(path, leaf):
 
 def save_slam(path: str, slam) -> None:
     """Serialize the estimator state of a StereoSLAM (or subclass)."""
+    # a pending async health fetch holds the latest frame's trajectory row
+    slam._flush_health()
     leaves = [_to_file(p, x) for p, x in _flatten(_device_state(slam))]
     gen = slam.gen
     meta = {
@@ -200,6 +202,10 @@ def load_slam(path: str, slam) -> None:
     slam.pose_graph_edges = [(ts0, ts1, np.asarray(dx), np.asarray(inf))
                              for ts0, ts1, dx, inf in meta.get("pose_graph_edges", [])]
     slam.vio_log = [tuple(r) for r in meta.get("vio_log", [])]
+    # no in-flight fetch or vote state of the live instance survives a load
+    slam._health_pend = None
+    slam._health_stale = False
+    slam._par_prev = None
     lh = meta.get("last_health")
     slam._last_health = (lh[0], np.asarray(lh[1])) if lh is not None else None
     gen = meta.get("torch_generator")

@@ -3,7 +3,9 @@
 They take the place of the JAX package's ``flax.struct`` pytrees: fields
 are tensors (or nested containers), ``replace`` returns a shallow copy with
 some fields swapped, and ``tree_map`` maps a function over the tensor
-leaves of several structurally equal containers at once.
+leaves of several structurally equal containers at once; ``tree_leaves``
+and ``tree_unflatten`` take a container apart into its tensors and put it
+back together (``torch.func.vmap`` maps over tensors only).
 """
 
 from __future__ import annotations
@@ -40,6 +42,19 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*[tree_map(fn, *xs) for xs in zip(tree, *rest)])
     return tree
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of ``tree`` in ``tree_map``'s order."""
+    out = []
+    tree_map(lambda x: out.append(x) or x, tree)
+    return out
+
+
+def tree_unflatten(template, leaves):
+    """``template`` with its tensor leaves replaced, in order, by ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
 
 
 def select(cond, a, b):

@@ -236,21 +236,29 @@ def test_csv_detector_in_pipeline(world, tmp_path):
 
 
 def test_ignored_labels_and_refused_keys(world):
-    """Labels the JAX package does not dispatch are ignored; the keys whose
-    paths are not ported are refused: async_health, and typed features in
-    the mono classes.  multithreading is ported and builds the back-end
-    executor."""
+    """Labels the JAX package does not dispatch are ignored; no key is
+    refused any more: ``async_health`` builds (its state starts empty),
+    ``multithreading`` builds the back-end executor, and the mono class
+    takes typed labels and builds, as the JAX package's does with one
+    camera, only the ellipse channel."""
+    from sadvio_tpu.pipeline.mono import MonoSLAM as JMono
     from sadvio_tpu_torch.pipeline.mono import MonoSLAM
 
-    _, rig = world
+    w, rig = world
     feats = (FeatureConfig(), FeatureConfig(label="pointxd", detector="shi_tomasi"),
              FeatureConfig(label="planexd"))
     slam = StereoSLAM(rig, chan_config(features=feats), device="cpu")
     assert not slam.channels and not slam._use_csv
     slam = StereoSLAM(rig, dataclasses.replace(chan_config(), multithreading=True), device="cpu")
     assert slam.backend_exec is not None
-    with pytest.raises(NotImplementedError, match="async_health"):
-        StereoSLAM(rig, dataclasses.replace(chan_config(), async_health=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="features"):
-        MonoSLAM(rig, dataclasses.replace(chan_config(FeatureConfig(label="linexd")),
-                                          slam_mode="mono"), device="cpu")
+    slam = StereoSLAM(rig, dataclasses.replace(chan_config(), async_health=True), device="cpu")
+    assert slam.cfg.async_health and slam._health_pend is None and slam._last_health is None
+    feats = tuple(FeatureConfig(label=lb) for lb in ("pointxd", "linexd", "edgeletxd",
+                                                    "ellipsepatternxd", "bboxxd"))
+    cfg = dataclasses.replace(chan_config(features=feats), slam_mode="mono")
+    mono = MonoSLAM(rig.subset([0]), cfg, device="cpu")
+    jrig = w.rig.replace(cam=jax.tree.map(lambda x: x[:1] if np.ndim(x) > 0 else x, w.rig.cam),
+                         R_f_s=w.rig.R_f_s[:1], t_f_s=w.rig.t_f_s[:1])
+    names = lambda s: [type(c).__name__ for c in s.channels]
+    assert names(mono) == names(JMono(jrig, cfg)) == ["EllipseChannel"]
+    assert mono._line_ch is None

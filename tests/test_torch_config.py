@@ -48,6 +48,14 @@ def _port_classes():
     return {c.__name__: c for c in (StereoSLAM, MonoSLAM, NoFovSLAM)}
 
 
+def _jax_classes():
+    from sadvio_tpu.pipeline.mono import MonoSLAM
+    from sadvio_tpu.pipeline.nofov_mode import NoFovSLAM
+    from sadvio_tpu.pipeline.slam import StereoSLAM
+
+    return {c.__name__: c for c in (StereoSLAM, MonoSLAM, NoFovSLAM)}
+
+
 @pytest.mark.parametrize("preset", PRESETS)
 def test_preset_builds_its_port_pipeline(preset):
     """The port's rig of the preset's dataset.yaml equals the JAX package's
@@ -55,10 +63,9 @@ def test_preset_builds_its_port_pipeline(preset):
     class for its slam_mode; the other classes refuse the mode;
     ``_ba_opts.angular`` follows ``optimizer``
     (tests/test_configs.py::test_preset_builds_pipeline).  Every preset
-    builds as it is, ``multithreading`` included; the one refusal left is
-    typed features in the mono and nofov classes, which raises
-    NotImplementedError naming them and nothing else.  The stereo class
-    builds the typed channels as the JAX package dispatches them."""
+    builds as it is, ``multithreading`` included, and again with every typed
+    label added, in the mono and nofov classes too: each time with the
+    channels the JAX package's class builds for it."""
     import numpy as np
 
     from sadvio_tpu.pipeline.euroc import rig_from_dataset as jax_rig_from_dataset
@@ -81,19 +88,21 @@ def test_preset_builds_its_port_pipeline(preset):
                                       np.asarray(getattr(jrig, name)), err_msg=name)
     classes = _port_classes()
     cls = classes[MODE_CLASS[cfg.slam_mode]]
-    typed = any(f.label.lower() != "pointxd" or f.detector.lower() in ("csv", "cvcsv")
-                for f in cfg.features)
-    if typed and not cls.TYPED_FEATURES:
-        with pytest.raises(NotImplementedError) as err:
-            cls(rig, cfg, device="cpu")
-        assert str(err.value).split(": ")[1] == "features"
-        return
-    slam = cls(rig, cfg, device="cpu")
+    typed = dataclasses.replace(cfg, features=cfg.features + tuple(
+        tcfg.FeatureConfig(label=lb) for lb in ("linexd", "edgeletxd", "ellipsepatternxd",
+                                                 "bboxxd")) + (
+        tcfg.FeatureConfig(label="pointxd", detector="csv", folder=d),))
+    jclass = _jax_classes()[MODE_CLASS[cfg.slam_mode]]
+    for c in (typed, cfg):
+        slam = cls(rig, c, device="cpu")
+        labels = [f.label.lower() for f in c.features]
+        assert (slam._line_ch is not None) == ("linexd" in labels and rig.C >= 2)
+        # the channels the JAX package builds for the config, in its order
+        jslam = jclass(jrig, c)
+        assert [type(ch).__name__ for ch in slam.channels] == \
+            [type(ch).__name__ for ch in jslam.channels]
+        assert slam._use_csv == jslam._use_csv == (c is typed)
     assert (slam.backend_exec is not None) == cfg.multithreading
-    labels = [f.label.lower() for f in cfg.features]
-    assert (slam._line_ch is not None) == ("linexd" in labels and rig.C >= 2)
-    assert len(slam.channels) == sum(lb in ("linexd", "edgeletxd", "ellipsepatternxd", "bboxxd")
-                                     for lb in labels)
     assert type(slam).__name__ == MODE_CLASS[cfg.slam_mode]
     assert slam._ba_opts.angular == cfg.optimizer.lower().startswith("angular")
     assert slam.vio == cfg.slam_mode.endswith("vio")

@@ -55,6 +55,9 @@ MODULES = [
     "sadvio_tpu_torch.utils.profiler",
     "sadvio_tpu_torch.utils.checkpoint",
     "sadvio_tpu_torch.parallel.pipeline_parallel",
+    "sadvio_tpu_torch.parallel.sharding",
+    "sadvio_tpu_torch.parallel.multiseq",
+    "sadvio_tpu_torch.parallel.time_sharding",
     "sadvio_tpu_torch.pipeline.euroc",
     "sadvio_tpu_torch.pipeline.native_io",
     "sadvio_tpu_torch.pipeline.online",

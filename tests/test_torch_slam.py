@@ -133,17 +133,17 @@ def test_pre_vi_init_prediction_is_constant_velocity(runs):
 def test_unported_config_keys_raise(runs):
     rig = runs["ts"].rig
     # the mono modes belong to MonoSLAM and NoFovSLAM, not to StereoSLAM
-    for change in (dict(async_health=True), dict(slam_mode="mono"),
+    for change in (dict(slam_mode="mono"),
                    dict(slam_mode="nofov"), dict(tracker="other"), dict(pose_estimator="imu")):
         with pytest.raises(NotImplementedError, match=next(iter(change))):
             TSLAM(rig, dataclasses.replace(TSLAMConfig(), **change), device="cpu")
     # the keys of the long-run path, the matcher/epipolar front end, the
-    # other marginalization forms, the angular optimizer and the back end on
-    # a second stream are accepted
+    # other marginalization forms, the angular optimizer, the back end on
+    # a second stream and the one-frame-late health harvest are accepted
     for change in (dict(tracker="matcher"), dict(pose_graph=True), dict(global_map=True),
                    dict(marg_f64=True), dict(sparsification=False), dict(mesh3d=True),
                    dict(pose_estimator="epipolar"), dict(optimizer="angularanalytic"),
-                   dict(multithreading=True)):
+                   dict(multithreading=True), dict(async_health=True)):
         TSLAM(rig, dataclasses.replace(TSLAMConfig(), **change), device="cpu")
     # run(profile=True) is ported: no frames give an empty trajectory
     fresh = TSLAM(rig, TSLAMConfig(), device="cpu")
