@@ -22,6 +22,9 @@ against ground truth.
                                       # and seeds, failures printed only
     python3 chip_smoke.py --parent DIR  # adds lk_iterate of the checkout
                                         # unpacked under DIR, timed in turns
+    python3 chip_smoke.py --save-vi-init FILE.npz  # also writes the biased
+                                        # run's accepted VIInit arguments
+                                        # (tests/data/card_bias_vi_init.npz)
 
 Phases: environment; build; ``lk_iterate`` against ``lk_iterate_ref`` on the
 four pyramid levels; ``lk_track`` against ``lk_track_ref`` and against the
@@ -62,7 +65,14 @@ tensors) running the landmark-sharded BA and the time-sharded
 preintegration against the single-device ones; the main path's 130 frames
 with async_health off, on, on, off; typed labels in the mono class (only
 the ellipse channel builds, a coded pattern stamped) and in the nofov class
-(all four channels), 40 frames each.
+(all four channels), 40 frames each; the biased world (the main world
+with rot_scale 4 and tests/test_pipeline_stress.py's IMU biases, 130
+frames: VIInit, ATE and both bias errors under the JAX test's gates) and
+the hardened world (pixel noise, exposure flicker, the occluder, 80
+frames: no reset, ATE; the share of live features each KLT gate rejects
+per frame track), then ``lk_track`` against ``lk_track_ref`` at the
+hardened run's frame track with the largest exposure step over the
+occluder.
 After every phase a probe asks whether ``torch.profiler`` still records an
 ``lk_track`` launch.  No phase catches its own failure.
 
@@ -79,6 +89,7 @@ lists each kernel with its launch count on the path that drives it, its
 largest disagreement with the plain version, its times and its bound.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -244,24 +255,49 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _finite_slots(*uvs):
+    return int(torch.stack([torch.isfinite(u).all(1) for u in uvs]).all(0).sum())
+
+
 def bound_lk_iterate(img1, uv, T, gx, gy, nrm, iters):
-    """Every input read once, the (N,3) output written once; operations at
-    the iteration cap (an upper bound on what the data needs: the bound is
-    bytes even so)."""
+    """Of the image, the (S+1)^2 pixels a bilinear S x S sample touches
+    around each slot with a finite start (never more than the image holds);
+    every other input read once, the (N,3) output written once; operations
+    at the iteration cap (an upper bound on what the data needs: the bound
+    is bytes even so)."""
     N, S = T.shape[0], T.shape[1]
-    return _bound(_nbytes(img1, uv, T, gx, gy, nrm) + N * 3 * 4,
+    window = min(_finite_slots(uv) * (S + 1) ** 2 * 4, _nbytes(img1))
+    return _bound(window + _nbytes(uv, T, gx, gy, nrm) + N * 3 * 4,
                   N * S * S * FLOP_PER_PIXEL_ITER * (iters + 1))
 
 
 def bound_lk_track(pyr0, pyr1, uv0, uv_init, valid0, warp, bwd_levels, levels=LEVELS):
+    """The answer is read only where valid0 holds (every other slot comes
+    back invalid), so of the images it must read, for each live slot at
+    each level, the (S+2)^2 halo its template is built from and the (S+1)^2
+    pixels a bilinear S x S sample touches in the other pyramid (the
+    backward pass revisits the same neighbourhoods), never more than the
+    levels hold; every per-slot input is read once and (uv, valid, err)
+    written once.  Operations of those slots at the iteration cap.
+    "bound_tracked_ms" is the same bound over every slot whose two starts
+    are finite: lk_track iterates those too, as the JAX kernel does.
+    """
     N, S = uv0.shape[0], 2 * RADIUS + 1
-    ins = [*pyr0[:levels], *pyr1[:levels], uv0, uv_init, valid0]
-    ins += [] if warp is None else [warp]
+    tracked = _finite_slots(uv0, uv_init)
+    slots = [uv0, uv_init, valid0] + ([] if warp is None else [warp])
     passes = [ITERS if lvl == 0 else ITERS_COARSE for lvl in range(levels)]
     passes += [ITERS_COARSE] * bwd_levels
-    flop = sum(N * ((S + 2) ** 2 * FLOP_PER_HALO_PIXEL + S * S * FLOP_PER_TEMPLATE_PIXEL
-                    + S * S * FLOP_PER_PIXEL_ITER * (it + 1)) for it in passes)
-    return _bound(_nbytes(*ins) + N * (2 * 4 + 1 + 4), flop)
+    per_slot_flop = sum((S + 2) ** 2 * FLOP_PER_HALO_PIXEL + S * S * FLOP_PER_TEMPLATE_PIXEL
+                        + S * S * FLOP_PER_PIXEL_ITER * (it + 1) for it in passes)
+    images = _nbytes(*pyr0[:levels], *pyr1[:levels])
+
+    def bound(n):
+        windows = min(n * levels * ((S + 2) ** 2 + (S + 1) ** 2) * 4, images)
+        return _bound(windows + _nbytes(*slots) + N * (2 * 4 + 1 + 4), n * per_slot_flop)
+
+    live = int(valid0.sum())
+    return {**bound(live), "live": live, "tracked": tracked,
+            "bound_tracked_ms": bound(tracked)["bound_ms"]}
 
 
 # ----------------------------------------------------------------------
@@ -463,7 +499,7 @@ def phase_track_kernel(frames, device):
     return rows
 
 
-def _track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels):
+def _track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels, under=None):
     """One call shape of lk_track: held against lk_track_ref and the
     five-launch engine="levels" track (NaN rows equal, `valid` equal away
     from a gate tie, positions within UV_TOL_PX on features valid in both;
@@ -471,7 +507,9 @@ def _track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels):
     the last place at most, is printed), then timed in turns.  Where the
     profile records none or part of the launches, lk_track's profiler time
     is taken in a fresh process and the levels engine's profiler figures
-    are "not measured" (the CUDA-event times stay)."""
+    are "not measured" (the CUDA-event times stay).  `under` (a mask of
+    features) prints how many of them each of lk_track and lk_track_ref
+    leaves valid."""
     from sadvio_tpu_torch.frontend import klt
     from sadvio_tpu_torch.ops import klt_kernel
 
@@ -490,6 +528,10 @@ def _track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels):
     torch.cuda.synchronize()
     _require(_same_bits(out_k, run_k(margin=0)) and _same_bits(out_k, run_k(margin=9)),
              f"{shape}: lk_track depends on its window margin")
+    if under is not None:
+        print(f"kernel lk_track: {shape}: of the {int(under.sum())} live features that start "
+              f"under the occluder valid {int((out_k[1] & under).sum())} (lk_track) / "
+              f"{int((out_r[1] & under).sum())} (lk_track_ref)")
     worst = {"uv": 0.0, "err": 0.0}
     for name, (uv_o, v_o, e_o) in (("lk_track_ref", out_r), ("engine=levels", out_l)):
         uv_k, v_k, e_k = out_k
@@ -550,7 +592,9 @@ def _track_kernel_row(shape, pyr0, pyr1, uv0, init, valid0, warp, bwd, levels):
           f"lk_iterate alone {_ms(row['levels_lk_iterate_device_ms'])}), as Python launches "
           f"it {row['levels_python_loop_ms']:.3f} ms, host {row['levels_host_us']:.0f} us/call "
           f"| plain {row['plain_ms']:.2f} ms | bound {row['bound_ms']:.5f} ms by "
-          f"{row['bound_by']} ({row['bytes']} B, {row['flop']} FLOP at the cap)")
+          f"{row['bound_by']} ({row['bytes']} B, {row['flop']} FLOP at the cap; the windows of "
+          f"the {row['live']} live slots; of the {row['tracked']} tracked ones "
+          f"{row['bound_tracked_ms']:.5f} ms)")
     return row
 
 
@@ -1105,13 +1149,17 @@ def preset_config(name, **kw):
 
 
 class _CaptureTrack:
-    """Keep the arguments of the n-th warped klt.track call while a run goes
-    (the pipeline modules call it through the module, so patching the
-    attribute is enough; the original is put back on exit).  n=0 keeps
-    none."""
+    """Keep the arguments of every warped klt.track call (the frame tracks)
+    while a run goes (the pipeline modules call it through the module, so
+    patching the attribute is enough; the original is put back on exit).
+    ``args`` is the n-th call's, None for n=0."""
 
-    def __init__(self, n):
-        self.n, self.count, self.args = n, 0, None
+    def __init__(self, n=0):
+        self.n, self.calls = n, []
+
+    @property
+    def args(self):
+        return self.calls[self.n - 1] if 0 < self.n <= len(self.calls) else None
 
     def __enter__(self):
         from sadvio_tpu_torch.frontend import klt
@@ -1120,9 +1168,7 @@ class _CaptureTrack:
 
         def track(*a, **k):
             if k.get("warp") is not None:
-                self.count += 1
-                if self.count == self.n:
-                    self.args = (a, dict(k))
+                self.calls.append((a, dict(k)))
             return self.orig(*a, **k)
 
         klt.track = track
@@ -2431,6 +2477,278 @@ def phase_typed_modes(world, frames, device):
     return {"mono": mono, "nofov": nofov}
 
 
+# --------------------------------------------------------------------------
+# the biased and the hardened worlds
+
+# tests/test_pipeline_stress.py's biases, rotation and gates; 130 frames as
+# the main path (the JAX test's 40 at 320x240 hold K=6, the main path K=11)
+STRESS_GYR_BIAS = (0.02, -0.015, 0.01)  # rad/s
+STRESS_ACC_BIAS = (0.05, 0.04, -0.06)  # m/s^2
+STRESS_ROT_SCALE = 4.0
+STRESS_BIAS_FRAMES, STRESS_HARD_FRAMES = 130, 80
+STRESS_BIAS_ATE_TOL_M, STRESS_BG_TOL, STRESS_BA_TOL = 0.06, 0.01, 0.15
+STRESS_HARD_ATE_TOL_M = 0.08
+STRESS_HARDENING = dict(noise_px=2.0, gain_jitter=0.12, offset_jitter=8.0, occluder=True)
+STRESS_MIN_UNDER = 8  # live features under the occluder at the frame the kernel is held on
+
+
+def _gate_rejects(call):
+    """Of one frame track's live features (valid0): the share the forward-
+    backward gate rejects and the share the max_err gate rejects, each
+    against the same track with that gate open, and the count valid with
+    both gates (four lk_track calls)."""
+    from sadvio_tpu_torch.ops import klt_kernel
+
+    (pyr0, pyr1, uv0, init, valid0), k = call
+    kw = dict(levels=k["levels"], radius=k["radius"])
+    run = lambda fb, err: klt_kernel.lk_track(pyr0, pyr1, uv0, init, valid0, k["warp"], **kw,
+                                              fb_thresh=fb, max_err=err)[1]
+    inf = float("inf")
+    open_, fb_only, err_only = run(inf, inf), run(FB_THRESH, inf), run(inf, MAX_ERR)
+    live = max(int(valid0.sum()), 1)
+    return (int((open_ & ~fb_only).sum()) / live, int((open_ & ~err_only).sum()) / live,
+            int(run(FB_THRESH, MAX_ERR).sum()))
+
+
+def _against_clean(call, f, kf_f, hframes, device):
+    """The hardened frame track against the same call on clean images.  The
+    hardened world without its knobs renders the same frames, so the
+    control keeps the slots, starts, warps and valid0 of the call and
+    changes only the images.  Device ms of both by graph replay in turns,
+    and the iterations per tracked slot and per live slot and the slowest
+    slot's SM cycles that the counters of the -DLK_CLOCKS library give."""
+    from sadvio_tpu_torch.frontend import klt
+    from sadvio_tpu_torch.ops import klt_kernel
+
+    (pyr0, pyr1, uv0, init, valid0), k = call
+    levels = k["levels"]
+    img = lambda frames, g: torch.as_tensor(frames[g].images[0], device=device).float()
+    _require(torch.equal(pyr0[0], img(hframes, kf_f)) and torch.equal(pyr1[0], img(hframes, f)),
+             "stress hardened: the captured track is not keyframe -> frame of camera 0")
+    _, clean = make_world(device, f + 1)  # the images do not depend on the frame count
+    pyrs = {"hardened": (pyr0, pyr1),
+            "clean": tuple(klt.build_pyramid(img(clean, g), levels) for g in (kf_f, f))}
+    args = (uv0.contiguous(), init.contiguous(), valid0.contiguous(), k["warp"].contiguous())
+    tracked = (torch.isfinite(uv0).all(1) & torch.isfinite(init).all(1)).cpu().numpy()
+    live = valid0.cpu().numpy()
+    kw = dict(levels=levels, radius=k["radius"])
+    out, runs = {"tracked": int(tracked.sum()), "live": int(live.sum())}, {}
+    for name, (p0, p1) in pyrs.items():
+        runs[name] = lambda p0=p0, p1=p1: klt_kernel.lk_track(p0, p1, *args, **kw)
+        klt_kernel.lk_track_clocks(p0, p1, *args, **kw)  # builds the counting library, warms it
+        ck = klt_kernel.lk_track_clocks(p0, p1, *args, **kw).numpy()
+        out[f"{name}_iterations_tracked"] = float(ck[tracked, 5].mean())
+        out[f"{name}_iterations_live"] = float(ck[live, 5].mean())
+        out[f"{name}_cycles_max"] = int(ck[:, 3].max())
+        out[f"{name}_valid"] = int(runs[name]()[1].sum())
+    ms = {"clean": [], "hardened": []}
+    for name in ("clean", "hardened", "hardened", "clean"):
+        ms[name].append(_graph_ms(runs[name]))
+    out.update({f"{k}_ms": float(np.mean(v)) for k, v in ms.items()})
+    print(f"kernel lk_track: hardened frame against the same call on the clean world's images "
+          f"(same {out['tracked']} tracked slots, {out['live']} live), in turns: device "
+          f"{out['hardened_ms']:.5f} / {out['clean_ms']:.5f} ms; valid after the track "
+          f"{out['hardened_valid']} / {out['clean_valid']}; iterations per tracked slot "
+          f"{out['hardened_iterations_tracked']:.2f} / {out['clean_iterations_tracked']:.2f}, "
+          f"per live slot {out['hardened_iterations_live']:.2f} / "
+          f"{out['clean_iterations_live']:.2f}; slowest slot {out['hardened_cycles_max']} / "
+          f"{out['clean_cycles_max']} SM cycles")
+    return out
+
+
+class _KeepViInit:
+    """Keep the inputs, the window slots' timestamps and the answer of every
+    VIInit attempt while a run goes (the pipeline calls viinit.vi_init
+    through the module); the originals are put back on exit."""
+
+    def __enter__(self):
+        from sadvio_tpu_torch.backend import viinit
+        from sadvio_tpu_torch.pipeline.slam import StereoSLAM
+
+        self.calls, slot_ts = [], []
+        solve, attempt = viinit.vi_init, StereoSLAM._run_vi_init
+        self.undo = [(viinit, "vi_init", solve), (StereoSLAM, "_run_vi_init", attempt)]
+
+        def vi_init(R, t, kf_mask, imu_chain, **k):
+            res = solve(R, t, kf_mask, imu_chain, **k)
+            self.calls.append(dict(args=(R.clone(), t.clone(), kf_mask.clone(), imu_chain),
+                                   kw=k, res=res, slot_ts=list(slot_ts)))
+            return res
+
+        def run_vi_init(slam):
+            slot_ts[:] = slam.kf_ts
+            return attempt(slam)
+
+        viinit.vi_init, StereoSLAM._run_vi_init = vi_init, run_vi_init
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig in self.undo:
+            setattr(obj, name, orig)
+
+
+def _frame_rotation(R_est, R_gt):
+    """The rotation that takes the true world to the estimated one, fitted
+    over pairs of body-to-world rotations (R_est_i ~ R_c R_gt_i)."""
+    M = np.einsum("nij,nkj->ik", np.asarray(R_est, np.float64), np.asarray(R_gt, np.float64))
+    U, _, Vt = np.linalg.svd(M)
+    return U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+
+
+def _tilt(g_dir, R_c):
+    """Angle (rad) between an estimated gravity direction and the true one
+    (-z of the true world) seen in the estimated world."""
+    g_true = R_c @ np.array([0.0, 0.0, -1.0])
+    g_dir = np.asarray(g_dir, np.float64) / np.linalg.norm(g_dir)
+    return float(np.arccos(np.clip(g_dir @ g_true, -1.0, 1.0)))
+
+
+def _bias_witness(rec, keep_vi, world, vi, ab):
+    """Where |ba - true| comes from.  The accelerometer bias is seen only
+    beside gravity: a gravity direction off by a tilt theta is absorbed by
+    a bias error of about g*theta.  Of the accepted VIInit attempt: |ba -
+    true| and g*tilt on the run's own poses, and on the true poses of the
+    same keyframes with the same IMU chain; |ba - true| on the run's poses
+    with every IMU link on (the >1 s gap gate off); then the estimates
+    after it (one per keyframe) and g*tilt of the final map, fitted over the
+    frames after VIInit.  Returns those numbers and the accepted attempt's
+    window poses, keyframe mask and IMU chain as numpy arrays."""
+    from sadvio_tpu_torch.backend import viinit
+    from sadvio_tpu_torch.models import imu as imu_mod
+
+    slam = rec["slam"]
+    g = imu_mod.GRAVITY
+    att = keep_vi.calls[-1]
+    (R, t, kf_mask, chain), res = att["args"], att["res"]
+    frame_of = {f.ts: i for i, f in enumerate(world.frames)}
+    kf = [frame_of[ts] for ts in att["slot_ts"]]
+    n = len(kf)
+    _require(bool(kf_mask[:n].all()) and not bool(kf_mask[n:].any()),
+             "stress bias: VIInit's slots and keyframe stamps disagree")
+    traj_R = np.stack([r for _, r, _ in slam.traj])
+    R_vis = _frame_rotation(traj_R[:vi], world.gt_R[:vi])
+    ba_err = lambda b: float(np.linalg.norm(b.cpu().numpy() - ab))
+    own = (ba_err(res["ba"]), g * _tilt(res["g_dir"].cpu().numpy(), R_vis))
+    every = torch.arange(len(chain.mask), device=kf_mask.device) < n - 1
+    own_every = ba_err(viinit.vi_init(R, t, kf_mask, chain.replace(mask=every), **att["kw"])["ba"])
+    R_gt, t_gt = R.clone(), t.clone()
+    R_gt[:n] = torch.as_tensor(world.gt_R[kf], device=R.device)
+    t_gt[:n] = torch.as_tensor(world.gt_t[kf], device=t.device)
+    true_res = viinit.vi_init(R_gt, t_gt, kf_mask, chain, **att["kw"])
+    true = (ba_err(true_res["ba"]), g * _tilt(true_res["g_dir"].cpu().numpy(), np.eye(3)))
+    rows = np.asarray(slam.vio_log)
+    ba_rows = rows[:, 7:10]
+    changed = np.flatnonzero(np.any(np.diff(ba_rows, axis=0) != 0, axis=1)) + 1
+    history = [float(np.linalg.norm(ba_rows[i] - ab)) for i in changed]
+    R_fin = _frame_rotation(traj_R[vi:], world.gt_R[vi:])
+    final_tilt = g * float(np.arccos(np.clip(R_fin[2, 2], -1.0, 1.0)))
+    print(f"stress bias: |ba - true| and g*tilt of gravity, m/s^2: VIInit on the run's poses "
+          f"{own[0]:.4f} / {own[1]:.4f} ({int(chain.mask.sum())} of {n - 1} IMU links on; "
+          f"with every link {own_every:.4f}); VIInit on the true poses of the same {n} "
+          f"keyframes (frames {kf}) {true[0]:.4f} / {true[1]:.4f}; estimates after VIInit "
+          f"{[round(x, 4) for x in history]}; final map g*tilt {final_tilt:.4f}")
+    inputs = {"R": R, "t": t, "kf_mask": kf_mask, "mask": chain.mask,
+              **{f"pre_{k.name}": getattr(chain.pre, k.name)
+                 for k in dataclasses.fields(chain.pre)}}
+    return ({"vi_own": own, "vi_own_every_link": own_every, "vi_true_poses": true,
+             "vi_keyframes": kf, "history": history, "final_g_tilt": final_tilt},
+            {k: v.cpu().numpy() for k, v in inputs.items()})
+
+
+def phase_stress(device):
+    """Nonzero IMU bias and the hardened world at the main path's settings.
+
+    Biased: the main world with rot_scale 4 and tests/test_pipeline_stress.py's
+    gyro and accelerometer biases, 130 frames; VIInit fires, ATE < 60 mm,
+    |bg - true| < 0.01 rad/s and |ba - true| < 0.15 m/s^2 at the newest
+    keyframe (the JAX test's gates).  Hardened: the main world with pixel
+    noise 2, exposure flicker (gain +-12%, offset +-8) and the occluder, 80
+    frames; no reset, ATE < 80 mm; per frame track the share of live
+    features the forward-backward and the max_err gates reject.  Then
+    lk_track against lk_track_ref on the inputs of the frame track with the
+    largest exposure step between its two images (mean intensity outside
+    the occluder) among those where the occluder covers the starts of at
+    least STRESS_MIN_UNDER live features and more than N/8 features stay
+    valid (_track_kernel_row)."""
+    from sadvio_tpu_torch.pipeline import synthetic
+
+    t0 = time.perf_counter()
+    gb, ab = np.asarray(STRESS_GYR_BIAS), np.asarray(STRESS_ACC_BIAS)
+    world, frames = make_world(device, STRESS_BIAS_FRAMES, rot_scale=STRESS_ROT_SCALE,
+                               gyr_bias=gb, acc_bias=ab)
+    with _KeepViInit() as keep_vi:
+        rec = run_slam(world, frames, device, "fused")
+    slam = rec["slam"]
+    k = slam.n_kf - 1
+    bg_err = float(np.linalg.norm(slam.window.bg[k].cpu().numpy() - gb))
+    ba_err = float(np.linalg.norm(slam.window.ba[k].cpu().numpy() - ab))
+    vi = next((i for i, o in enumerate(rec["outs"]) if o.get("vi_initialized")), None)
+    kf = np.flatnonzero(rec["is_kf"]).tolist()
+    print(f"stress bias: {_describe(rec)}")
+    print(f"stress bias: VIInit at frame {vi}, ATE {rec['ate'] * 1e3:.3f} mm, |bg - true| "
+          f"{bg_err:.5f} rad/s, |ba - true| {ba_err:.4f} m/s^2, keyframe frames {kf}, resets "
+          f"{slam.n_resets}, lk_track launches {rec['lk_track']}, keyframe median "
+          f"{np.median(rec['frame_ms'][rec['is_kf']]):.1f} ms")
+    _require(slam.vi_initialized, "stress bias: VIInit never fired")
+    _require(rec["ate"] < STRESS_BIAS_ATE_TOL_M, f"stress bias: ATE {rec['ate']:.4f} m")
+    _require(bg_err < STRESS_BG_TOL, f"stress bias: |bg - true| {bg_err:.4f}")
+    _require(ba_err < STRESS_BA_TOL, f"stress bias: |ba - true| {ba_err:.4f}")
+    _require(slam.n_resets == 0 and rec["lk_track"] == _accounted_tracks(rec)
+             and rec["lk_iterate"] == 0, f"stress bias: {rec['lk_track']} lk_track launches")
+    witness, vi_inputs = _bias_witness(rec, keep_vi, world, vi, ab)
+
+    hworld, hframes = make_world(device, STRESS_HARD_FRAMES, **STRESS_HARDENING)
+    with _CaptureTrack() as keep:
+        hrec = run_slam(hworld, hframes, device, "fused")
+    hslam = hrec["slam"]
+    print(f"stress hardened: {_describe(hrec)}, keyframe median "
+          f"{np.median(hrec['frame_ms'][hrec['is_kf']]):.1f} ms")
+    _require(hslam.n_resets == 0, "stress hardened: the run reset")
+    _require(hrec["ate"] < STRESS_HARD_ATE_TOL_M, f"stress hardened: ATE {hrec['ate']:.4f} m")
+    _require(hrec["lk_track"] == _accounted_tracks(hrec) and hrec["lk_iterate"] == 0,
+             f"stress hardened: {hrec['lk_track']} lk_track launches")
+    _require(len(keep.calls) == len(hframes) - 1, "stress hardened: one frame track per frame")
+    rejects = np.asarray([_gate_rejects(c) for c in keep.calls])
+    print("stress hardened: rejected share of live features per frame track (frames 1..): "
+          f"forward-backward {np.round(rejects[:, 0], 3).tolist()}; max_err "
+          f"{np.round(rejects[:, 1], 3).tolist()}; mean {rejects[:, 0].mean():.4f} / "
+          f"{rejects[:, 1].mean():.4f}, max {rejects[:, 0].max():.4f} / {rejects[:, 1].max():.4f}")
+    _require(rejects[:, 0].max() > 0, "stress hardened: the forward-backward gate never fired")
+
+    T = len(hframes)
+    H, W = hframes[0].images.shape[1:]
+    kf_frames = np.flatnonzero(hrec["is_kf"])
+    best = None
+    for i, call in enumerate(keep.calls):
+        f = i + 1
+        kf_f = int(kf_frames[kf_frames < f].max())
+        cx, cy, r = synthetic.occluder_disc(f, T, W, H)
+        if not (-r < cx < W + r and -r < cy < H + r):
+            continue
+        clear = ~(synthetic.occluder_mask(f, T, W, H) | synthetic.occluder_mask(kf_f, T, W, H))
+        a, b = (hframes[g].images[0][clear].astype(np.float64).mean() for g in (kf_f, f))
+        step = abs(np.log(b / a))
+        (_, _, _, init, valid0), _ = call
+        under = valid0 & (((init - torch.tensor([cx, cy], device=device)) ** 2).sum(1) < r * r)
+        # enough features left valid for _track_kernel_row's agreement check
+        key = (int(under.sum()) >= STRESS_MIN_UNDER and rejects[i, 2] > N_FEATURES // 8, step)
+        if best is None or key > best[0]:
+            best = (key, f, kf_f, call, under)
+    _require(best is not None, "stress hardened: the occluder never crossed the image")
+    (_, step), f, kf_f, call, under = best
+    (pyr0, pyr1, uv0, init, valid0), kw = call
+    print(f"kernel lk_track: hardened frame track: frame {f} from keyframe {kf_f}, mean "
+          f"intensity step {np.exp(step):.4f}x outside the occluder, {int(valid0.sum())} live "
+          f"features, {int(under.sum())} of them start under the occluder")
+    row = _track_kernel_row("hardened frame", pyr0, pyr1, uv0.contiguous(), init.contiguous(),
+                            valid0.contiguous(), kw["warp"].contiguous(), 1, LEVELS, under=under)
+    row.update(frame=f, step=float(np.exp(step)), under=int(under.sum()),
+               launches=hrec["lk_track"], **_against_clean(call, f, kf_f, hframes, device))
+    print(f"stress: phase time {time.perf_counter() - t0:.1f} s")
+    return {"bias": rec, "hardened": hrec, "rejects": rejects, "row": row, "vi_frame": vi,
+            "bg_err": bg_err, "ba_err": ba_err, "witness": witness, "vi_inputs": vi_inputs}
+
+
 SHAPE_KEYS = ("ms", "profiler_ms", "host_us", "plain_ms", "bound_ms", "bound_by", "max_abs_err_uv",
               "max_abs_err_err")
 
@@ -2495,6 +2813,9 @@ def main():
     probe("phase_async_health")
     typed = phase_typed_modes(world, frames, device)
     probe("phase_typed_modes")
+    stress = phase_stress(device)
+    mode_rows["hardened_frame"] = stress["row"]
+    probe("phase_stress")
     lost = [after for after, seen, _ in probes if not seen]
     print(f"profiler probe: lk_track recorded after {sum(seen for _, seen, _ in probes)} of "
           f"{len(probes)} phases; first phase after which it was not: "
@@ -2505,6 +2826,8 @@ def main():
         phase_measure(world, frames, device)
     if "--sweep" in sys.argv[1:]:
         phase_long_sweep(device)
+    if "--save-vi-init" in sys.argv[1:]:
+        np.savez(sys.argv[sys.argv.index("--save-vi-init") + 1], **stress["vi_inputs"])
     if "--parent" in sys.argv[1:]:
         phase_parent(sys.argv[sys.argv.index("--parent") + 1], frames[0], device)
     print(f"descriptors: {json.dumps(desc)}")
@@ -2547,6 +2870,12 @@ def main():
         "launches_async_runs": {("on" if r["on"] else "off") + str(i): r["lk_track"]
                                 for i, r in enumerate(async_recs)},
         "launches_typed_runs": {k: r["lk_track"] for k, r in typed.items()},
+        "launches_stress_runs": {k: stress[k]["lk_track"] for k in ("bias", "hardened")},
+        "hardened_frame": {k: stress["row"][k] for k in (
+            *SHAPE_KEYS, "bound_tracked_ms", "tracked", "live", "frame", "step", "under",
+            "hardened_ms", "clean_ms", "hardened_iterations_tracked",
+            "clean_iterations_tracked")},
+        "bias_witness": stress["witness"],
         "mono_frame": {k: mode_rows["mono_frame"][k] for k in SHAPE_KEYS},
         "nofov_refine": {k: mode_rows["nofov_refine"][k]
                          for k in (*SHAPE_KEYS, "rotation_deg")},

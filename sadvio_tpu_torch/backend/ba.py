@@ -75,6 +75,19 @@ class BAProblem(NamedTuple):
     lines: LineBlock = None  # optional line landmarks: 6-dof blocks that constrain poses
 
 
+def make_problem(state, obs, rig, imu=None, priors=None, fixed_mask=None, lmk_only=False):
+    """A BAProblem with the JAX package's defaults: no IMU factors, an empty
+    prior of 8 slots, slot 0 fixed."""
+    K, dev = state.K, state.R.device
+    if imu is None:
+        imu = ImuChain.create(K, device=dev)
+    if priors is None:
+        priors = PriorSet.create(K, 8, device=dev)
+    if fixed_mask is None:
+        fixed_mask = torch.arange(K, device=dev) == 0
+    return BAProblem(state, obs, rig, imu, priors, fixed_mask, bool(lmk_only))
+
+
 def slot_of_lmk(priors: PriorSet, L: int):
     """(L,) retained-slot index of each landmark, P if eliminated."""
     P = priors.P

@@ -1,8 +1,9 @@
 """Residuals of the visual-inertial factor graph, whitened, batched over
-leading dims (port of ``sadvio_tpu/backend/factors.py`` without the line
-factors).  Reprojection and bearing Jacobians are hand-derived, the numeric
-variant takes central differences; the small factors are linearized by
-``torch.func.jacfwd`` in the solvers."""
+leading dims (port of ``sadvio_tpu/backend/factors.py``; the line residual
+lives in ``frontend/lines.py``, as in the JAX package).  Reprojection and
+bearing Jacobians are hand-derived, the numeric variant takes central
+differences; the small factors are linearized by ``torch.func.jacfwd`` in
+the solvers."""
 
 from __future__ import annotations
 
@@ -108,6 +109,11 @@ def bias_rw_residual(ba_i, bg_i, ba_j, bg_j, dt, acc_walk, gyr_walk):
     return torch.cat([(ba_j - ba_i) / (acc_walk * sdt), (bg_j - bg_i) / (gyr_walk * sdt)], -1)
 
 
+def pose_prior_residual(R, t, R0, t0, sqrt_info):
+    """6-dof pose prior on the retraction chart."""
+    return geo.mv(sqrt_info, geo.pose_local(R0, t0, R, t))
+
+
 def state_prior_residual(R, t, v, ba, bg, R0, t0, v0, ba0, bg0, sqrt_info15):
     """15-dof VIO state prior on the retraction chart."""
     dx = geo.pose_local(R0, t0, R, t)
@@ -132,3 +138,23 @@ def relative_pose_residual(R_i, t_i, R_j, t_j, dx_meas, sqrt_info):
     dx_meas the expected retraction from frame i to frame j."""
     Rij, tij = geo.pose_compose(*geo.pose_inverse(R_i, t_i), R_j, t_j)
     return geo.mv(sqrt_info, torch.cat([geo.so3_log(Rij), tij], -1) - dx_meas)
+
+
+def scale_prior_residual(log_scale, log_scale0, weight):
+    """Scale prior for monocular VI init."""
+    return weight * (log_scale - log_scale0)
+
+
+def motion2d_residual(R_i, t_i, R_j, t_j, motion_2d, dt, sqrt_info):
+    """Planar (ground-vehicle) odometry prior: motion_2d = (v_x, omega_z),
+    so over dt the body advances v_x dt along its own x axis and yaws by
+    omega_z dt, staying in plane.  r = W local(T_i T_delta, T_j)."""
+    dx = motion_2d[..., 0] * dt
+    dth = motion_2d[..., 1] * dt
+    c, s = torch.cos(dth), torch.sin(dth)
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    Rd = torch.stack([torch.stack([c, -s, zero], -1), torch.stack([s, c, zero], -1),
+                      torch.stack([zero, zero, one], -1)], -2).to(R_i.dtype)
+    td = torch.stack([dx, zero, zero], -1).to(R_i.dtype)
+    Rp, tp = geo.pose_compose(R_i, t_i, Rd, td)
+    return geo.mv(sqrt_info, geo.pose_local(Rp, tp, R_j, t_j))

@@ -33,3 +33,15 @@ def stereo_triangulate(rig_origins_w, rays_w, valid, det_eps=1e-4, max_depth=40.
     return midpoint_triangulate(
         origins.movedim(0, -2), rays_w.movedim(0, -2), valid.movedim(0, -1),
         det_eps=det_eps, max_depth=max_depth)
+
+
+def depth_init(origins, dirs, depths, mask, min_depth=0.1, max_depth=40.0):
+    """RGB-D landmark init: the masked mean of the per-view points origin +
+    depth * ray.  origins, dirs: (...,M,3) world frame; depths: (...,M)
+    metric along-ray depths (out of (min_depth, max_depth) is ignored).
+    Returns (p (...,3), ok)."""
+    good = mask & (depths > min_depth) & (depths < max_depth)
+    w = good.to(origins.dtype)[..., None]
+    n = w.sum(-2)
+    p = ((origins + dirs * depths[..., None]) * w).sum(-2) / torch.clamp(n, min=1.0)
+    return p, n[..., 0] >= 1

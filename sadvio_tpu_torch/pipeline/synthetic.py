@@ -1,12 +1,15 @@
 """Synthetic EuRoC-like world: rendered stereo stream + IMU + ground truth.
 
-Port of ``sadvio_tpu/pipeline/synthetic.py`` without the exposure jitter
-and the occluder, with both trajectories, the four camera models, the
-line-segment world and the non-overlapping-FoV world.  The scene is a wall
-of Gaussian intensity blobs, optionally crossed by bright 3D segments,
-rendered with torch on the caller's device; IMU samples come from the analytic trajectory by high-rate finite
-differences in float64 on the host.  With the same arguments it draws the
-same random numbers in the same order as the JAX package.
+Port of ``sadvio_tpu/pipeline/synthetic.py``: both trajectories, the four
+camera models, the line-segment world, the non-overlapping-FoV world, the
+constant IMU biases and the hardening knobs (pixel noise, exposure flicker,
+a moving occluder).  The scene is a wall of Gaussian intensity blobs,
+optionally crossed by bright 3D segments, rendered with torch on the
+caller's device; the flicker and the occluder are applied on the host in
+numpy, as the JAX package applies them.  IMU samples come from the
+analytic trajectory by high-rate finite differences in float64 on the host.
+With the same arguments it draws the same random numbers in the same order
+as the JAX package.
 """
 
 from __future__ import annotations
@@ -162,14 +165,37 @@ def _rot(yaw, pitch):
     return Ry @ Rx
 
 
+def occluder_disc(k, n_frames, width, height):
+    """Centre (x, y) and radius in pixels of ``make_world``'s occluding disc
+    at frame k: it sweeps left to right over the run and bobs."""
+    cx = (k / max(n_frames - 1, 1)) * (width + 120.0) - 60.0
+    return cx, height * (0.5 + 0.3 * np.sin(0.5 * k)), 0.12 * width
+
+
+def occluder_mask(k, n_frames, width, height):
+    """(height, width) bool: the pixels the occluding disc covers at frame k."""
+    cx, cy, r = occluder_disc(k, n_frames, width, height)
+    ys, xs = np.mgrid[0:height, 0:width]
+    return (xs - cx) ** 2 + (ys - cy) ** 2 < r ** 2
+
+
 def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=240,
-               n_points=240, noise_px=0.0, imu_noise=True, rot_scale=1.0, camera="pinhole",
-               n_lines=0, trajectory="default", wall_x=(-5.0, 5.0),
+               n_points=240, noise_px=0.0, imu_noise=True, acc_bias=None, gyr_bias=None,
+               rot_scale=1.0, gain_jitter=0.0, offset_jitter=0.0, occluder=False,
+               camera="pinhole", n_lines=0, trajectory="default", wall_x=(-5.0, 5.0),
                device=None) -> SyntheticWorld:
     """Blob-wall world seen by a stereo rig of ``camera`` model (see
     ``make_rig``).  ``trajectory``: "default" or "excursion"; ``wall_x``:
     horizontal extent of the wall; ``n_lines``: bright 3D segments on the
     wall, drawn on pinhole rigs only (``segments``).
+
+    ``acc_bias`` / ``gyr_bias``: constant (3,) biases added to the IMU
+    samples, which the estimator should recover.  Hardening knobs:
+    ``noise_px`` per-pixel Gaussian intensity noise; ``gain_jitter`` and
+    ``offset_jitter`` a per-frame, per-camera exposure flicker (gain
+    uniform in 1 +- gain_jitter, offset uniform in +-offset_jitter, clipped
+    to [0, 255]); ``occluder`` a dark disc (12.0, radius 0.12 W) sweeping
+    left to right and bobbing.
 
     Images are rendered on ``device`` (None: the CUDA card) and returned as
     numpy arrays."""
@@ -228,6 +254,12 @@ def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=
             imgs = [_render_segments(im, rig.R_f_s[c], rig.t_f_s[c], fx[c], cx[c], cy[c], R_k, t_k,
                                      segs) for c, im in enumerate(imgs)]
         imgs = [im.cpu().numpy() for im in imgs]
+        if gain_jitter > 0 or offset_jitter > 0:
+            imgs = [np.clip(im * (1.0 + rng.uniform(-gain_jitter, gain_jitter))
+                            + rng.uniform(-offset_jitter, offset_jitter), 0.0, 255.0)
+                    for im in imgs]
+        if occluder:
+            imgs = [np.where(occluder_mask(k, n_frames, width, height), 12.0, im) for im in imgs]
         if noise_px > 0:
             imgs = [im + rng.standard_normal(im.shape).astype(np.float32) * noise_px
                     for im in imgs]
@@ -244,6 +276,12 @@ def make_world(seed=0, n_frames=80, fps=20.0, imu_rate=200.0, width=320, height=
                                          * f32(params.acc_noise) * f32(np.sqrt(imu_rate)))
                 gyr = gyr.astype(f32) + (rng.standard_normal(gyr.shape).astype(f32)
                                          * f32(params.gyr_noise) * f32(np.sqrt(imu_rate)))
+            # a bias adds in the samples' dtype: float32 after the noise,
+            # float64 without it
+            if acc_bias is not None:
+                acc = acc + np.asarray(acc_bias, np.float64).astype(acc.dtype)[None, :]
+            if gyr_bias is not None:
+                gyr = gyr + np.asarray(gyr_bias, np.float64).astype(gyr.dtype)[None, :]
             dts = np.full((n_sub,), dt_imu)
         frames.append(FrameData(ts=k / fps, images=np.stack(imgs).astype(np.float32),
                                 acc=acc.astype(np.float32), gyr=gyr.astype(np.float32),

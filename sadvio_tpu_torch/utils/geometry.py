@@ -133,9 +133,18 @@ def so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
     return _eye(w, W.shape) - 0.5 * W + c[..., None, None] * W2
 
 
+def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    return so3_left_jacobian_inv(-w)
+
+
 def mv(A, x):
     """Batched matrix-vector product A (...,i,j) x (...,j) -> (...,i)."""
     return (A @ x[..., None])[..., 0]
+
+
+def pose_identity(batch_shape=(), dtype=torch.float32, device=None):
+    R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3).clone()
+    return R, torch.zeros((*batch_shape, 3), dtype=dtype, device=device)
 
 
 def pose_compose(Ra, ta, Rb, tb):
@@ -146,6 +155,11 @@ def pose_compose(Ra, ta, Rb, tb):
 def pose_inverse(R, t):
     Rt = R.transpose(-1, -2)
     return Rt, -mv(Rt, t)
+
+
+def pose_apply(R, t, p):
+    """Apply pose to points. p: (...,3)."""
+    return mv(R, p) + t
 
 
 def so3_orthonormalize(R: torch.Tensor) -> torch.Tensor:
@@ -176,6 +190,50 @@ def se3_exp(xi: torch.Tensor):
 def se3_log(R, t):
     w = so3_log(R)
     return torch.cat([w, mv(so3_left_jacobian_inv(w), t)], -1)
+
+
+def pose_to_matrix(R, t):
+    """(...,3,3),(...,3) -> (...,4,4) homogeneous."""
+    M = torch.zeros((*R.shape[:-2], 4, 4), dtype=R.dtype, device=R.device)
+    M[..., :3, :3] = R
+    M[..., :3, 3] = t
+    M[..., 3, 3] = 1.0
+    return M
+
+
+def matrix_to_pose(M):
+    return M[..., :3, :3], M[..., :3, 3]
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w,x,y,z) -> rotation matrix, batched."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (w,x,y,z): of the four Shepperd
+    constructions, the one with the largest pivot (the first on a tie)."""
+    m = lambda i, j: R[..., i, j]
+    tr = m(0, 0) + m(1, 1) + m(2, 2)
+    qd = torch.stack([1.0 + tr, 1.0 + m(0, 0) - m(1, 1) - m(2, 2),
+                      1.0 - m(0, 0) + m(1, 1) - m(2, 2), 1.0 - m(0, 0) - m(1, 1) + m(2, 2)], -1)
+    qd = torch.sqrt(torch.clamp(qd, min=1e-12)) * 0.5
+    a = m(2, 1) - m(1, 2), m(0, 2) - m(2, 0), m(1, 0) - m(0, 1)  # antisymmetric parts
+    b = m(0, 1) + m(1, 0), m(0, 2) + m(2, 0), m(1, 2) + m(2, 1)  # symmetric parts
+    rows = ((None, a[0], a[1], a[2]), (a[0], None, b[0], b[1]), (a[1], b[0], None, b[2]),
+            (a[2], b[1], b[2], None))
+    cands = torch.stack([
+        torch.stack([qd[..., i] if x is None else x / (4 * qd[..., i]) for x in row], -1)
+        for i, row in enumerate(rows)], -2)
+    idx = torch.argmax(torch.stack([tr, m(0, 0), m(1, 1), m(2, 2)], -1), -1)
+    q = torch.gather(cands, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
 
 
 def inv3x3(A: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,16 @@
 """The PyTorch port imports without JAX and without the JAX package.
 
 Each module of the port is imported in a fresh interpreter, which must end
-with neither ``jax`` nor ``sadvio_tpu`` (or any submodule) loaded.
+with neither ``jax`` nor ``sadvio_tpu`` (or any submodule) loaded.  Every
+top-level function and class of each ``sadvio_tpu/**/*.py`` has a
+counterpart of the same name in the port's file of the same path, but the
+private helpers listed in ``FOLDED`` with the port code that does their
+work (read from the sources, nothing imported).
 """
 
+import ast
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -66,6 +72,63 @@ MODULES = [
     "sadvio_tpu_torch.tools.compare_euroc",
     "sadvio_tpu_torch.tools.visualize",
 ]
+
+# private helpers of the JAX package that the port has under no such name
+FOLDED = {
+    "backend/marginalization.py": {
+        "_np_sym64": "the symmetrization inside _eigh (float64 tensors, no numpy round trip)",
+        "_np_rr_pinv64": "rr_pinv64: rank_revealing_pinv in float64 at 1e-12",
+        "_np_pinv_sqrt64": "pinv_sqrt64: pinv_sqrt in float64 at 1e-12",
+    },
+    "frontend/bbox.py": {"_center": "inlined in triangulate_bbox (0.5 * (lo + hi))"},
+    "frontend/descriptors.py": {
+        "_pack_bits": "none needed: descriptors stay (N,256) bool rows; "
+                      "data/convert.py:unpack_descriptors reads the JAX package's words",
+    },
+    "frontend/ellipses.py": {"_pool": "_max_pool (F.max_pool2d; the min as -max(-x))"},
+    "frontend/klt.py": {
+        "_patch_coords": "ops/klt_kernel.py:_patches (bilinear taps) and the CUDA kernels",
+        "_template_ws": "ops/klt_kernel.py:_template_ws",
+        "_iterate_batched": "ops/klt_kernel.py:lk_iterate / lk_iterate_ref",
+        "_track_level": "ops/klt_kernel.py:track_levels (engine='levels') and lk_track",
+    },
+    "ops/klt_kernel.py": {
+        "_lk_kernel": "ops/csrc/lk_iterate.cu, redesigned as ops/csrc/lk_track.cu",
+    },
+    "pipeline/slam.py": {"_cam0": "rig.cam.camera(0)", "_cam": "rig.cam.camera(c)"},
+}
+
+
+def _top_level(path, with_imports=False):
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif with_imports and isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif with_imports and isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+    return names
+
+
+def test_every_function_of_the_jax_package_has_a_counterpart():
+    jax_root = pathlib.Path(REPO, "sadvio_tpu")
+    port_root = pathlib.Path(REPO, "sadvio_tpu_torch")
+    missing, folded = {}, {}
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        port = port_root / rel
+        assert port.exists(), f"no port of sadvio_tpu/{rel}"
+        gone = _top_level(path) - _top_level(port, with_imports=True)
+        public = sorted(n for n in gone if not n.startswith("_"))
+        private = {n for n in gone if n.startswith("_")}
+        if public:
+            missing[rel] = public
+        if private:
+            folded[rel] = private
+    assert not missing, missing
+    assert folded == {k: set(v) for k, v in FOLDED.items()}
+
 
 _PROBE = """
 import sys

@@ -238,3 +238,58 @@ def test_f64_dense_replay_gradient_is_bounded_by_the_residual(stressed):
     # the reprojection blocks are formed in the type that is asked for
     _, g_r = tmarg._reproj_h_slot0(state, obs, rig, opts, blanket, dim, P, torch.float64)
     assert g_r.dtype == torch.float64
+
+
+def _small_window(L, P, K=4, C=2, seed=0):
+    """A stereo window of K keyframes seeing L landmarks, every one in every
+    view, with an empty prior of P slots: the capacities a config sets."""
+    from sadvio_tpu.data.window import Observations, PriorSet, WindowState
+    from sadvio_tpu.pipeline.synthetic import make_rig
+    from sadvio_tpu.utils import geometry as jgeo
+
+    rng = np.random.default_rng(seed)
+    rig = make_rig(320, 240)
+    lmk = np.stack([rng.uniform(-2, 2, L), rng.uniform(-1.5, 1.5, L), rng.uniform(4, 8, L)],
+                   -1).astype(np.float32)
+    R = np.asarray(jgeo.so3_exp(jnp.asarray(rng.normal(0, 0.03, (K, 3)), jnp.float32)))
+    t = np.stack([np.linspace(0, 0.3, K), np.zeros(K), np.zeros(K)], -1).astype(np.float32)
+    uv = np.zeros((K, C, L, 2), np.float32)
+    for k in range(K):
+        for c in range(C):
+            p = (lmk - t[k]) @ R[k] - np.asarray(rig.t_f_s[c])
+            uv[k, c] = 200.0 * p[:, :2] / p[:, 2:] + [160.0, 120.0]
+    st = WindowState.create(K, L).replace(R=jnp.asarray(R), t=jnp.asarray(t),
+                                          kf_mask=jnp.ones(K, bool), lmk=jnp.asarray(lmk),
+                                          lmk_mask=jnp.ones(L, bool))
+    return (st, Observations(uv=jnp.asarray(uv), mask=jnp.ones((K, C, L), bool)), rig,
+            JImuChain.create(K), PriorSet.create(K, P))
+
+
+@pytest.mark.parametrize("L, P", [(6, 24), (24, 24), (2, 2)])
+def test_prior_capacity_above_the_landmark_count_fails_as_the_reference(L, P):
+    """Queue C6 (ADVICE r5, JAX marginalization.py:584): a prior capacity P
+    above the landmark capacity L.  Both packages fail alike, earlier than
+    the float32 QR: the blanket keeps at most L landmarks, so the dense
+    residuals' first reshape of the 3P kept coordinates raises (JAX
+    marginalization.py:300, TypeError under tracing; the port's
+    _marg_dense_residuals, RuntimeError), with a message that names no
+    capacity.  At L >= P the QR has its dim = 30 + 6P rows from the dense
+    factors alone, and both packages marginalize with the same masks."""
+    window = _small_window(L, P)
+    args = [from_numpy(x) for x in _np(window)]
+    if P > L:
+        with pytest.raises(TypeError, match="reshape"):
+            jmarg.marginalize(*window, jba.BAOptions(), vio=True)
+        with pytest.raises(RuntimeError, match="shape"):
+            tmarg.marginalize(*args, tba.BAOptions(), vio=True)
+        return
+    pj, ij = jmarg.marginalize(*window, jba.BAOptions(), vio=True)
+    pt, it = tmarg.marginalize(*args, tba.BAOptions(), vio=True)
+    for name in ("prior_slot_mask", "plp_mask", "sp_mask"):
+        np.testing.assert_array_equal(getattr(pt, name).numpy(), np.asarray(getattr(pj, name)))
+    np.testing.assert_array_equal(it["keep_mask"].numpy(), np.asarray(ij["keep_mask"]))
+    rows = tmarg._marg_dense_residuals(
+        args[0], args[3], args[4], tba.BAOptions(),
+        tmarg.partition_blanket(args[0], args[1], args[4], P),
+        torch.zeros(2 * D + 6 * P)).numel()
+    assert rows >= 2 * D + 6 * P
