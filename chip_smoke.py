@@ -2151,7 +2151,6 @@ PAR_SHARD_N = 256  # samples of the time-sharded preintegration over 2 ranks
 PAR_RANKS = 2
 PAR_T_TOL_M = 1e-4  # batched against separate solves, on t
 PAR_DIR = os.path.join(REPO, ".smoke_parallel")  # git-ignored; removed after the phase
-PAR_TIMEOUT_S = 300
 # tests/test_time_sharding.py:_check_equal's tolerances: (rtol, atol) per field;
 # the covariance's atol is relative to its largest entry
 PREINT_TOL = {"dR": (0.0, 3e-6), "dv": (0.0, 1e-5), "dp": (0.0, 1e-5), "dt": (0.0, 1e-6),
@@ -2163,13 +2162,11 @@ TYPED_FRAMES = 40
 TYPED_LABELS = ("linexd", "edgeletxd", "ellipsepatternxd", "bboxxd")
 
 PAR_WORKER = r"""
-import json, sys, time
+import json, time
 import torch
 import torch.distributed as dist
 
-rank, world, port, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                        world_size=world)
+rank, world, (d,) = join_group()  # defined ahead of this source by tests/torch_ranks.py
 import chip_smoke as cs
 from sadvio_tpu_torch.backend import ba
 from sadvio_tpu_torch.models import imu
@@ -2239,31 +2236,6 @@ def _event_host_ms(fn, reps=5):
     return float(np.median(dev)), float(np.median(host))
 
 
-def _spawn_ranks(n, args, timeout=PAR_TIMEOUT_S):
-    """PAR_WORKER in n processes on this machine (gloo over localhost);
-    every child is waited for, and killed on the timeout."""
-    import socket
-
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
-        sk.bind(("localhost", 0))
-        port = str(sk.getsockname()[1])
-    env = dict(os.environ, PYTHONPATH=REPO)
-    procs = [subprocess.Popen([sys.executable, "-c", PAR_WORKER, str(r), str(n), port, *args],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, cwd=REPO)
-             for r in range(n)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0].decode())
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        _require(p.returncode == 0, f"parallel: rank {r} failed:\n{out[-3000:]}")
-
-
 def phase_parallel(main_rec, frames, device):
     """The parallel modules on the card: preintegrate_assoc against
     preintegrate at N=10 and N=200 (the main world's IMU samples); the
@@ -2272,11 +2244,19 @@ def phase_parallel(main_rec, frames, device):
     (gloo over CUDA tensors): the landmark-sharded solve of the last window
     against the single-device solve, and the time-sharded preintegration
     at N=256 (the JAX test's stream) against the sequential one."""
+    import importlib.util
     import shutil
 
     from sadvio_tpu_torch.backend import ba
     from sadvio_tpu_torch.models import imu
     from sadvio_tpu_torch.parallel import multiseq
+
+    # tests/torch_ranks.py by its path: a site package named ``tests`` can
+    # shadow the checkout's test folder
+    spec = importlib.util.spec_from_file_location(
+        "torch_ranks", os.path.join(REPO, "tests", "torch_ranks.py"))
+    torch_ranks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_ranks)
 
     cat = lambda key: np.concatenate([np.asarray(getattr(f, key), np.float32)
                                       for f in frames[1:]])
@@ -2331,7 +2311,7 @@ def phase_parallel(main_rec, frames, device):
                     "imu": _imu_stream(PAR_SHARD_N) + [torch.zeros(3), torch.zeros(3)]},
                    os.path.join(PAR_DIR, "inputs.pt"))
         t0 = time.perf_counter()
-        _spawn_ranks(PAR_RANKS, [PAR_DIR])
+        torch_ranks.spawn(PAR_WORKER, PAR_RANKS, [PAR_DIR], PAR_DIR)
         spawn_s = time.perf_counter() - t0
         res = []
         for r in range(PAR_RANKS):

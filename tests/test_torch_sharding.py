@@ -20,11 +20,6 @@ the same mesh shape, with tests/test_sharding.py's tolerances: t and R 1e-4, lan
 return the same result bit for bit (each takes the same LM branch).
 """
 
-import os
-import socket
-import subprocess
-import sys
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,27 +30,23 @@ from sadvio_tpu.backend import ba as jba
 from sadvio_tpu.parallel import multiseq as jms, sharding as jsh
 from sadvio_tpu.utils import geometry as jgeo
 from sadvio_tpu_torch.utils.struct import tree_leaves
+from tests import torch_ranks
 from tests.test_torch_backend import _port_problem
 
 torch.set_num_threads(2)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_RANKS = 4
-SPAWN_TIMEOUT_S = 300
 ITERS = 4
 B = 4
 RETAINED = (3, 20, 37, 50, 64, 90, 101, 127)
 PIXEL_NOISE = 0.5  # px: the solved cost sits on the noise, not on float32 rounding
 
 WORKER = r"""
-import sys
 import torch
 import torch.distributed as dist
 
-rank, world, port, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+rank, world, (d,) = join_group()  # defined ahead of this source by tests/torch_ranks.py
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                        world_size=world)
 from sadvio_tpu_torch.backend import ba
 from sadvio_tpu_torch.parallel import multiseq, sharding
 
@@ -75,31 +66,13 @@ print(f"rank {rank} done", flush=True)
 """
 
 
-def free_port() -> str:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return str(s.getsockname()[1])
-
-
-def spawn(worker, n, args, timeout=SPAWN_TIMEOUT_S):
-    """Run ``worker`` in n processes (rank, n, port, *args); each must exit
-    0.  On the timeout every child is killed and the test fails."""
-    port = free_port()
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-c", worker, str(r), str(n), port, *args],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
-                              cwd=REPO) for r in range(n)]
-    outs = []
+def spawn(worker, n, args, workdir):
+    """``torch_ranks.spawn``; its report of every rank's exit code and log
+    tail becomes the test's failure message."""
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0].decode())
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-            p.communicate()
-        pytest.fail(f"spawned ranks timed out after {timeout} s")
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{out[-3000:]}"
+        torch_ranks.spawn(worker, n, args, workdir)
+    except torch_ranks.RanksFailed as e:
+        pytest.fail(str(e), pytrace=False)
 
 
 def _problem(seed):
@@ -124,7 +97,7 @@ def port_runs(tmp_path_factory):
     batch = [_problem(s) for s in range(B)]
     torch.save({"single": _port_problem(single), "batch": [_port_problem(p) for p in batch],
                 "iters": ITERS}, d / "problems.pt")
-    spawn(WORKER, N_RANKS, [str(d)])
+    spawn(WORKER, N_RANKS, [d], d)
     outs = [torch.load(d / f"out_{r}.pt", weights_only=False) for r in range(N_RANKS)]
     return dict(single=single, batch=batch, outs=outs)
 

@@ -30,20 +30,17 @@ BG = np.array([0.001, 0.002, -0.001], np.float32)
 N_SHARDED = 256
 
 WORKER = r"""
-import sys
 import numpy as np
 import torch
 import torch.distributed as dist
 
-rank, world, port, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+rank, world, (d, *pads) = join_group()  # defined ahead of this source by tests/torch_ranks.py
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                        world_size=world)
 from sadvio_tpu_torch.models import imu
 from sadvio_tpu_torch.parallel import time_sharding
 
 mesh = time_sharding.make_time_mesh(2)
-for pad in sys.argv[5:]:
+for pad in pads:
     inp = np.load(f"{d}/stream_{pad}.npz")
     t = {k: torch.as_tensor(inp[k]) for k in inp.files}
     pre = time_sharding.preintegrate_time_sharded(t["acc"], t["gyr"], t["dt"], t["ba"], t["bg"],
@@ -145,7 +142,7 @@ def sharded_runs(tmp_path_factory):
         streams[pad] = (acc, gyr, dt)
         np.savez(d / f"stream_{pad}.npz", acc=np.asarray(acc), gyr=np.asarray(gyr),
                  dt=np.asarray(dt), ba=BA, bg=BG)
-    spawn(WORKER, 2, [str(d), *map(str, PADS)])
+    spawn(WORKER, 2, [d, *PADS], d)
     return {pad: (streams[pad], [torch.load(d / f"pre_{pad}_{r}.pt", weights_only=False)
                                  for r in range(2)]) for pad in PADS}
 
