@@ -89,6 +89,7 @@ lists each kernel with its launch count on the path that drives it, its
 largest disagreement with the plain version, its times and its bound.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -649,17 +650,20 @@ STAGES = ("_pyramids", "_accumulate_imu", "_frontend", "_insert_kf", "_template_
           "_backend", "_marg_roll", "_run_vi_init")
 
 
-def _time_stages(slam, names=STAGES):
-    """Wrap the pipeline's stages with a synchronised host clock; returns
-    {stage: [ms, ...]} filled as the run goes."""
+def _time_stages(slam, names=STAGES, sync=True):
+    """Wrap the pipeline's stages with a host clock, synchronised before and
+    after each call (or, with ``sync=False``, the host's own time in the
+    call: what it takes to launch the stage); returns {stage: [ms, ...]}
+    filled as the run goes."""
     log = {name: [] for name in names}
+    wait = torch.cuda.synchronize if sync else (lambda: None)
 
     def wrap(name, fn):
         def timed(*a, **k):
-            torch.cuda.synchronize()
+            wait()
             t0 = time.perf_counter()
             out = fn(*a, **k)
-            torch.cuda.synchronize()
+            wait()
             log[name].append((time.perf_counter() - t0) * 1e3)
             return out
         return timed
@@ -678,7 +682,11 @@ class _TimedFunctions:
     """Time stage functions (of a module, or of a class in it) with a
     synchronised host clock while a run goes: {"module.function": [ms, ...]}.
     The functions are looked up through their owners at call time, so
-    patching the attribute is enough; the originals are put back on exit."""
+    patching the attribute is enough; the originals are put back on exit.
+    A call made while a stage is being captured into a CUDA graph is not
+    timed (it runs nothing then, and a sync would break the capture), and
+    the graph's replays do not call it: inside a captured stage only the
+    eager calls, one per variant, are timed."""
 
     def __init__(self, names=LONG_STAGES):
         from sadvio_tpu_torch.backend import marginalization as marg
@@ -706,6 +714,8 @@ class _TimedFunctions:
 
     def _wrap(self, key, orig):
         def timed(*a, **k):
+            if torch.cuda.is_current_stream_capturing():
+                return orig(*a, **k)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = orig(*a, **k)
@@ -720,24 +730,33 @@ class _TimedFunctions:
             setattr(owner, fn, orig)
 
 
-def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profile_frames=(),
-             cfg_kw=None, capture_roll=None, capture_ba=0):
-    """Drive StereoSLAM over `frames` on `engine`; returns the run's record.
-    Launch counts are set to 0 just before the first frame and read just
-    after the last.  `profile_frames` (first, last) puts torch.profiler
-    around those frames.  `cfg_kw` overrides config keys.  `capture_roll`
-    keeps a copy of what the n-th VIO window roll was given; `capture_ba`
-    keeps the BAProblems of the last n window BAs (`_backend` calls)."""
-    from sadvio_tpu_torch.ops import klt_kernel
-    from sadvio_tpu_torch.pipeline import synthetic
+def main_slam(world, device, caps=MAIN_CAPS, cfg_kw=None):
+    """The main path's StereoSLAM on `world` (`cfg_kw` overrides config keys)."""
     from sadvio_tpu_torch.pipeline.config import Capacities, SLAMConfig
     from sadvio_tpu_torch.pipeline.slam import StereoSLAM
 
     cfg = SLAMConfig(slam_mode="bimonovio", max_kf_number=10, min_lmk_number=40,
                      max_movement_parallax=1.0, min_movement_parallax=0.02,
-                     async_health=False,
-                     caps=Capacities(**caps), **(cfg_kw or {}))
-    slam = StereoSLAM(world.rig, cfg, imu_params=world.imu_params, device=device)
+                     async_health=False, caps=Capacities(**caps), **(cfg_kw or {}))
+    return StereoSLAM(world.rig, cfg, imu_params=world.imu_params, device=device)
+
+
+def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profile_frames=(),
+             cfg_kw=None, capture_roll=None, capture_ba=0, eager=False, stage_host=False):
+    """Drive StereoSLAM over `frames` on `engine`; returns the run's record.
+    Launch counts are set to 0 just before the first frame and read just
+    after the last.  `profile_frames` (first, last) puts torch.profiler
+    around those frames.  `cfg_kw` overrides config keys.  `capture_roll`
+    keeps a copy of what the n-th VIO window roll was given; `capture_ba`
+    keeps the BAProblems of the last n window BAs (`_backend` calls).
+    `eager` runs the stages plainly (graphs.eager()) instead of replaying
+    their captured graphs; `stage_host` logs the host's ms in each captured
+    stage's calls (no synchronisation)."""
+    from sadvio_tpu_torch.ops import klt_kernel
+    from sadvio_tpu_torch.pipeline import synthetic
+    from sadvio_tpu_torch.utils import graphs
+
+    slam = main_slam(world, device, caps, cfg_kw)
     slam.klt_engine = engine
     captured = {}
     if capture_roll is not None:
@@ -765,29 +784,33 @@ def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profil
 
         slam._backend = keeping
     stage_log = _time_stages(slam) if stages else None
+    host_log = _time_stages(slam, CAPTURED_STAGES, sync=False) if stage_host else None
     klt_kernel.lk_iterate.launches = 0
     klt_kernel.lk_track.launches = 0
     klt_kernel.lk_track.launches_by_levels = {}
-    frame_ms, is_kf, prof, outs = [], [], None, []
-    t_run = time.perf_counter()
-    for i, f in enumerate(frames):
-        if profile_frames and i == profile_frames[0]:
-            from torch.profiler import ProfilerActivity, profile
+    frame_ms, is_kf, prof, outs, vi = [], [], None, [], []
+    with graphs.eager() if eager else contextlib.nullcontext():
+        t_run = time.perf_counter()
+        for i, f in enumerate(frames):
+            if profile_frames and i == profile_frames[0]:
+                from torch.profiler import ProfilerActivity, profile
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+                t_prof = time.perf_counter()
+            t0 = time.perf_counter()
+            out = slam.process_frame(f)
             torch.cuda.synchronize()
-            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            prof.__enter__()
-            t_prof = time.perf_counter()
-        t0 = time.perf_counter()
-        out = slam.process_frame(f)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        is_kf.append(bool(out["is_kf"]))
-        outs.append(out)
-        if profile_frames and i == profile_frames[1]:
-            prof_wall = time.perf_counter() - t_prof
-            prof.__exit__(None, None, None)
-    run_s = time.perf_counter() - t_run
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            is_kf.append(bool(out["is_kf"]))
+            vi.append(slam.vi_initialized)
+            outs.append(out)
+            if profile_frames and i == profile_frames[1]:
+                prof_wall = time.perf_counter() - t_prof
+                prof.__exit__(None, None, None)
+        run_s = time.perf_counter() - t_run
     rec = {"engine": engine, "slam": slam, "frames": len(frames), "run_s": run_s,
+           "vi_initialized": np.asarray(vi), "host_stages": host_log,
            "frame_ms": np.asarray(frame_ms), "is_kf": np.asarray(is_kf),
            "lk_iterate": klt_kernel.lk_iterate.launches, "lk_track": klt_kernel.lk_track.launches,
            "lk_track_by_levels": dict(klt_kernel.lk_track.launches_by_levels),
@@ -798,6 +821,7 @@ def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profil
     _require(np.isfinite(est).all() and all(np.isfinite(R).all() for _, R, _ in slam.traj),
              "non-finite pose")
     rec["est"] = est
+    rec["rot"] = np.stack([R for _, R, _ in slam.traj])
     rec["ate"] = synthetic.ate_rmse(est, world.gt_t[: len(est)])
     if prof is not None:
         n = profile_frames[1] - profile_frames[0] + 1
@@ -826,10 +850,11 @@ def _describe(rec):
 
 
 def phase_main_path(world, frames, device):
-    """The full-width main path on the fused engine: one lk_track launch
-    per klt.track call and none of lk_iterate."""
+    """The full-width main path on the fused engine, its stages replayed as
+    CUDA graphs: one lk_track launch per klt.track call and none of
+    lk_iterate."""
     with _ClockSampler() as clocks:
-        rec = run_slam(world, frames, device, "fused", capture_ba=PAR_B)
+        rec = run_slam(world, frames, device, "fused", capture_ba=PAR_B, stage_host=True)
     slam = rec["slam"]
     print(f"main path: {_describe(rec)}")
     print(f"main path: {clocks.summary()}")
@@ -845,6 +870,163 @@ def phase_main_path(world, frames, device):
     _require(slam.window.R.is_cuda and slam.window.lmk.is_cuda and slam.obs.uv.is_cuda,
              "window state left the card")
     return rec
+
+
+# the main path's captured stages (utils/graphs.py), in the order of a frame
+CAPTURED_STAGES = ("_preint", "_predict_cv", "_predict_imu", "_pyramids", "_frontend",
+                   "_marg_roll", "_insert_kf", "_backend")
+GRAPH_POS_TOL_M = 1e-4  # captured against eager, per frame
+GRAPH_ROT_TOL_RAD = 1e-4
+GRAPH_REPLAYS = 5  # replays timed between events, per stage
+
+
+def _rotation_gap(Ra, Rb):
+    """Per-frame angle (rad) of Ra^T Rb for stacks of rotations, from its
+    sine and cosine (arccos alone reads float32 rounding as 1e-4 rad)."""
+    M = np.einsum("nki,nkj->nij", Ra.astype(np.float64), Rb.astype(np.float64))
+    s = 0.5 * np.linalg.norm(np.stack([M[:, 2, 1] - M[:, 1, 2], M[:, 0, 2] - M[:, 2, 0],
+                                       M[:, 1, 0] - M[:, 0, 1]], -1), axis=-1)
+    return np.arctan2(s, (np.trace(M, axis1=1, axis2=2) - 1.0) / 2.0)
+
+
+def _replay_ms(graph, n=GRAPH_REPLAYS):
+    """Device ms of one replay of a captured graph: events around each of n
+    replays, the median."""
+    times = []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _frame_times(rec):
+    ms, kf = rec["frame_ms"], rec["is_kf"]
+    return {"track_median_ms": float(np.median(ms[~kf][1:])),
+            "kf_median_ms": float(np.median(ms[kf][1:])), "kf_max_ms": float(ms[kf][1:].max())}
+
+
+def phase_graphs(world, frames, device, cap):
+    """The main path again on the same world and frames under
+    graphs.eager(), held against phase_main_path's captured run: the same
+    keyframes and VIInit frame, per-frame positions within 1e-4 m and
+    rotations within 1e-4 rad, the same lk_track count, and every captured
+    stage replayed (replays ran under set_sync_debug_mode("error"), inside
+    utils/graphs.py).  Prints per stage the variants, capture ms, replays,
+    the host ms per call in both runs, the device ms of one replay (CUDA
+    events) and, from torch.profiler in a fresh process, the kernels and
+    device ms of one replay."""
+    from sadvio_tpu_torch.utils import graphs
+
+    eager = run_slam(world, frames, device, "fused", eager=True, stage_host=True)
+    print(f"graphs: eager run: {_describe(eager)}")
+    slam_c, slam_e = cap["slam"], eager["slam"]
+    _require(not slam_e.graphs.variants, "the eager run captured a stage")
+    _require((cap["is_kf"] == eager["is_kf"]).all(),
+             f"keyframes differ: captured {np.flatnonzero(cap['is_kf']).tolist()} eager "
+             f"{np.flatnonzero(eager['is_kf']).tolist()}")
+    vi_c, vi_e = int(np.argmax(cap["vi_initialized"])), int(np.argmax(eager["vi_initialized"]))
+    _require(cap["vi_initialized"].any() and vi_c == vi_e,
+             f"VIInit at frame {vi_c} captured, {vi_e} eager")
+    dpos = np.linalg.norm(cap["est"] - eager["est"], axis=1)
+    drot = _rotation_gap(cap["rot"], eager["rot"])
+    same_bits = bool((cap["est"] == eager["est"]).all() and (cap["rot"] == eager["rot"]).all())
+    print(f"graphs: captured vs eager over {len(frames)} frames: max position gap "
+          f"{dpos.max():.3e} m (frame {int(dpos.argmax())}), max rotation gap {drot.max():.3e} rad"
+          f", bit for bit: {same_bits}; ATE {cap['ate'] * 1e3:.4f} mm captured, "
+          f"{eager['ate'] * 1e3:.4f} mm eager; VIInit at frame {vi_c}; keyframes "
+          f"{int(cap['is_kf'].sum())}")
+    _require(dpos.max() <= GRAPH_POS_TOL_M, f"position gap {dpos.max():.3e} m")
+    _require(drot.max() <= GRAPH_ROT_TOL_RAD, f"rotation gap {drot.max():.3e} rad")
+    _require(cap["lk_track"] == eager["lk_track"],
+             f"lk_track launches {cap['lk_track']} captured, {eager['lk_track']} eager")
+    stats = slam_c.graphs.stats()
+    for name in CAPTURED_STAGES:
+        st = stats.get(name, {"variants": 0, "replays": 0})
+        _require(st["replays"] > 0, f"stage {name} was never replayed ({st})")
+        _require(st["variants"] <= graphs.MAX_VARIANTS, f"stage {name}: {st['variants']} variants")
+    t0 = time.perf_counter()
+    child = _graph_profile_fresh(slam_c)
+    print(f"graphs: fresh-process profile {time.perf_counter() - t0:.1f} s")
+    rows = {}
+    for name in CAPTURED_STAGES:
+        table = slam_c.graphs.variants[name]
+        var = max(table.values(), key=lambda v: v.replays)
+        he, hc = eager["host_stages"][name], cap["host_stages"][name]
+        rows[name] = dict(stats[name], calls=len(hc), eager_host_ms=float(np.median(he)),
+                          captured_host_ms=float(np.median(hc)), replay_ms=_replay_ms(var.graph),
+                          **child.get(name, {}))
+        r = rows[name]
+        print(f"graphs: {name}: {r['variants']} variants captured in {r['capture_ms']:.1f} ms, "
+              f"{r['replays']} replays of {r['calls']} calls; host ms per call (median) eager "
+              f"{r['eager_host_ms']:.3f} captured {r['captured_host_ms']:.3f} (its capturing "
+              f"calls included), per replay (mean) {r['replay_host_ms']:.3f}; one replay: "
+              f"{r['replay_ms']:.4f} ms device (events), "
+              f"{r.get('replay_kernels', 'not measured')} kernels and "
+              f"{_ms(r.get('replay_device_ms'), 4)} device (profiler, fresh process)")
+    fc, fe = _frame_times(cap), _frame_times(eager)
+    print("graphs: frame ms (host clock to the end of the frame's device work, first frame "
+          "and first keyframe left out): tracking median "
+          f"{fc['track_median_ms']:.3f} captured / {fe['track_median_ms']:.3f} eager; keyframe "
+          f"median {fc['kf_median_ms']:.3f} / {fe['kf_median_ms']:.3f}, max "
+          f"{fc['kf_max_ms']:.3f} / {fe['kf_max_ms']:.3f}; run {cap['run_s']:.1f} s / "
+          f"{eager['run_s']:.1f} s")
+    print(f"graphs: graph memory pools: {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved "
+          f"in all after both runs")
+    return {"stages": rows, "captured": fc, "eager": fe, "bit_for_bit": same_bits,
+            "max_pos_gap_m": float(dpos.max()), "max_rot_gap_rad": float(drot.max())}
+
+
+def _graph_profile_fresh(slam):
+    """The per-stage profiler rows of phase_graphs, taken in a new
+    interpreter ({stage: {...}}, empty where the profile recorded no device
+    time).  The inputs of each stage's most replayed variant go to the
+    child through the git-ignored .smoke_profile/ (removed after)."""
+    import shutil
+
+    stages = {}
+    for name in CAPTURED_STAGES:
+        (spec, attrs), var = max(slam.graphs.variants[name].items(), key=lambda kv: kv[1].replays)
+        stages[name] = {"spec": spec, "attrs": attrs, "inputs": [t.cpu() for t in var.static_in]}
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    path = os.path.join(PROFILE_DIR, "graph_stages.pt")
+    torch.save(stages, path)
+    try:
+        proc = subprocess.run([sys.executable, "-c", f"import chip_smoke as c; "
+                               f"c._graph_profile_child({path!r})"], cwd=REPO,
+                              capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    _require(proc.returncode == 0, f"fresh-process graph profile: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _graph_profile_child(path):
+    """Entry of the fresh process: each captured stage called on the saved
+    inputs (its first call captures it), then one replay under
+    torch.profiler; prints one JSON line."""
+    import sadvio_tpu_torch  # noqa: F401  (pins full fp32)
+    from sadvio_tpu_torch.utils import graphs
+
+    device = torch.device("cuda")
+    world, _ = make_world(device, 2)  # the main world's rig and IMU parameters
+    slam = main_slam(world, device)
+    out = {}
+    for name, d in torch.load(path, weights_only=False).items():
+        slam.klt_engine = "fused"
+        args, kwargs = graphs._unflatten(d["spec"], iter([t.to(device) for t in d["inputs"]]))
+        getattr(slam, name)(*args, **kwargs)
+        (var,) = slam.graphs.variants[name].values()
+        row = {}
+        tab, _ = _profile(var.graph.replay, n=1)
+        if tab:
+            row["replay_kernels"] = sum(c for c, _ in tab.values())
+            row["replay_device_ms"] = sum(us for _, us in tab.values()) / 1e3
+        out[name] = row
+    print(json.dumps(out))
 
 
 def _accounted_tracks(rec):
@@ -929,10 +1111,12 @@ def phase_long_run(device, n_frames=LONG_FRAMES, seed=LONG_SEED):
              "map, archive or mesh tensors left the card")
     for key, ms in timed.log.items():
         _require(len(ms) > 0, f"stage {key} never ran on the long run")
-        print(f"long run: stage {key}: calls {len(ms)} mean {np.mean(ms):.3f} ms median "
+        print(f"long run: stage {key}: timed calls {len(ms)} mean {np.mean(ms):.3f} ms median "
               f"{np.median(ms):.3f} ms max {np.max(ms):.3f} ms")
     print(f"long run: stage optimize_archive: 1 call {opt_ms:.1f} ms ({len(nodes)} nodes, "
           f"{len(slam.pose_graph_edges)} edges)")
+    print(f"long run: captured stages (variants, capture ms, replays): "
+          f"{ {k: tuple(round(x, 1) for x in v.values()) for k, v in slam.graphs.stats().items()} }")
     _require(rec["captured"] is not None, f"VIO roll {LONG_CAPTURE_ROLL} never came")
     rec["timed"] = timed
     return rec
@@ -992,7 +1176,8 @@ def phase_frontends(world, frames, device, fused):
             _require(by.get(1, 0) == rec["frames"] - 1 and by.get(LEVELS, 0) == n_kf,
                      f"matcher run: launches by levels {by}")
             ms = timed.log["detect.brief_describe"]
-            print(f"matcher run: stage detect.brief_describe: calls {len(ms)} median "
+            print(f"matcher run: stage detect.brief_describe: eager calls {len(ms)} (inside "
+                  f"the captured front end only its first calls are eager) median "
                   f"{np.median(ms):.3f} ms")
         else:
             _require(by.get(1, 0) == 0, "the epipolar run launched a levels=1 track")
@@ -1152,7 +1337,9 @@ class _CaptureTrack:
     """Keep the arguments of every warped klt.track call (the frame tracks)
     while a run goes (the pipeline modules call it through the module, so
     patching the attribute is enough; the original is put back on exit).
-    ``args`` is the n-th call's, None for n=0."""
+    ``args`` is the n-th call's, None for n=0.  A replayed graph calls no
+    Python, so the stages run eagerly (graphs.eager()) until the n-th call
+    is kept and are captured after it; with n=0 the whole run is eager."""
 
     def __init__(self, n=0):
         self.n, self.calls = n, []
@@ -1163,19 +1350,30 @@ class _CaptureTrack:
 
     def __enter__(self):
         from sadvio_tpu_torch.frontend import klt
+        from sadvio_tpu_torch.utils import graphs
 
         self.klt, self.orig = klt, klt.track
+        self.eager = graphs.eager()
+        self.eager.__enter__()
 
         def track(*a, **k):
-            if k.get("warp") is not None:
+            if k.get("warp") is not None and not torch.cuda.is_current_stream_capturing():
                 self.calls.append((a, dict(k)))
+                if len(self.calls) == self.n:
+                    self._end_eager()
             return self.orig(*a, **k)
 
         klt.track = track
         return self
 
+    def _end_eager(self):
+        if self.eager is not None:
+            self.eager.__exit__(None, None, None)
+            self.eager = None
+
     def __exit__(self, *exc):
         self.klt.track = self.orig
+        self._end_eager()
 
 
 def _count_calls(slam, names):
@@ -1256,9 +1454,9 @@ def run_mono(world, frames, device, preset, vio, capture=0, **cfg_kw):
     slam = MonoSLAM(world.rig.subset([0]), preset_config(preset, **cfg_kw),
                     imu_params=world.imu_params if vio else None, device=device)
     stages = _time_stages(slam, ("_try_bootstrap", "_backend", "_run_vi_init"))
-    with _CaptureTrack(capture) as cap:
+    with _CaptureTrack(capture) if capture else contextlib.nullcontext() as cap:
         rec = _drive_mode(slam, [f._replace(images=f.images[:1]) for f in frames])
-    rec["capture"], rec["stages"] = cap.args, stages
+    rec["capture"], rec["stages"] = cap.args if capture else None, stages
     i0, n = rec["i0"], rec["frames"]
     _require(i0 is not None, f"{preset}: the bootstrap never fired")
     iv = next((i for i, o in enumerate(rec["outs"]) if o.get("vi_initialized")), None)
@@ -2759,6 +2957,8 @@ def main():
     probe("phase_track_kernel")
     fused = phase_main_path(world, frames, device)
     probe("phase_main_path")
+    phase_graphs(world, frames, device, fused)
+    probe("phase_graphs")
     levels = phase_levels_path(world, frames, device, fused)
     probe("phase_levels_path")
     fronts = phase_frontends(world, frames, device, fused)

@@ -33,7 +33,7 @@ from sadvio_tpu_torch.data.window import (
 from sadvio_tpu_torch.frontend import lines as lines_mod
 from sadvio_tpu_torch.models import imu as imu_mod
 from sadvio_tpu_torch.utils import geometry as geo
-from sadvio_tpu_torch.utils.struct import Struct, select
+from sadvio_tpu_torch.utils.struct import Struct, select, take
 
 D = 15  # per-keyframe state dof: [omega(3), nu(3), dv(3), dba(3), dbg(3)]
 
@@ -198,11 +198,11 @@ def _dense_residuals_pl(Rk, tk, vk, bak, bgk, pl, imu: ImuChain, priors: PriorSe
         pl[priors.ll_a], pl[priors.ll_b], priors.ll_val, priors.ll_sqrt_info))
 
     # dense marginalization prior replayed at its linearization point
-    f = priors.dn_frame
+    at_f = lambda x: take(x, priors.dn_frame)
     dl = _masked(priors.prior_slot_mask[:, None], pl - priors.dn_lmk)
-    dx_dn = torch.cat([geo.pose_local(priors.dn_R, priors.dn_t, Rk[f], tk[f]),
-                       vk[f] - priors.dn_v, bak[f] - priors.dn_ba, bgk[f] - priors.dn_bg,
-                       dl.reshape(-1)])
+    dx_dn = torch.cat([geo.pose_local(priors.dn_R, priors.dn_t, at_f(Rk), at_f(tk)),
+                       at_f(vk) - priors.dn_v, at_f(bak) - priors.dn_ba,
+                       at_f(bgk) - priors.dn_bg, dl.reshape(-1)])
     r_dn = _masked(priors.dn_mask, priors.dn_J @ dx_dn + priors.dn_r)
     return torch.cat([r_imu.reshape(-1), r_bias.reshape(-1), r_sp.reshape(-1),
                       r_lp.reshape(-1), r_plp.reshape(-1), r_ll.reshape(-1), r_dn])
@@ -430,7 +430,7 @@ def _lm(problem: BAProblem, opts: BAOptions, n_iters: int, linearize, solve, ret
     cost0 = lin.cost
     state, cost = problem.state, cost0
     ends = None if lines is None else lines.ends
-    lam = torch.tensor(opts.lam_init, dtype=state.lmk.dtype, device=state.lmk.device)
+    lam = torch.full((), opts.lam_init, dtype=state.lmk.dtype, device=state.lmk.device)
     costs, accepts = [], []
     for _ in range(n_iters):
         dxd, dl, ok = solve(lin, at(state, ends), free, lam)

@@ -31,14 +31,91 @@ from sadvio_tpu_torch.backend.ba import D, BAOptions, _reproj_terms
 from sadvio_tpu_torch.data.window import ImuChain, Observations, PriorSet, Rig, WindowState
 from sadvio_tpu_torch.models import imu as imu_mod
 from sadvio_tpu_torch.utils import geometry as geo
+from sadvio_tpu_torch.utils.struct import take
 
 
 def _sym(A):
     return 0.5 * (A + A.transpose(-1, -2))
 
 
+def _round_robin(m: int, device):
+    """Round-robin pairings of m (even) indices as permutations, (m-1, m):
+    round r pairs the entries 2i and 2i+1 of row r; the pairs of a round
+    are disjoint and every two indices meet once over the m-1 rounds."""
+    r = torch.arange(m - 1, device=device)[:, None]
+    i = torch.arange(m, device=device)[None, :]
+    seat = torch.where(i == 0, 0, (i - 1 + r) % (m - 1) + 1)
+    return torch.stack([seat[:, : m // 2], seat[:, m // 2:].flip(-1)], -1).reshape(m - 1, m)
+
+
+def sym_eig(A):
+    """Eigenvalues (in no particular order) and orthonormal eigenvectors
+    (columns) of the symmetric (..., n, n) ``A``, computed in float64 and
+    returned in ``A``'s dtype.
+
+    On a CUDA tensor by ``jacobi_eig``: ``torch.linalg.eigh``'s CUDA route
+    checks its error code on the host, which a CUDA graph cannot capture.
+    On the CPU by ``torch.linalg.eigh`` (LAPACK), the plain version, which
+    is much faster there.  Both agree to float64 rounding on the
+    eigenvalues; eigenvectors of a repeated eigenvalue may come in another
+    basis of its eigenspace, which the functions of A built from them
+    (pseudo-inverses, square roots) do not see."""
+    if A.is_cuda:
+        return jacobi_eig(A)
+    lam, U = torch.linalg.eigh(A.double())
+    return lam.to(A.dtype), U.to(A.dtype)
+
+
+def jacobi_eig(A):
+    """``sym_eig`` by cyclic Jacobi rotations in round-robin order, in
+    float64; eigenvalues in no particular order.  Jacobi rotations are also
+    how XLA computes eigh on a TPU.
+
+    A size m matrix (n rounded up to even) takes m-1 rounds per sweep, each
+    rotating m/2 disjoint index pairs at once: the matrix is kept permuted
+    so that the round's pairs are adjacent 2x2 blocks, and a round is one
+    gather into the next round's order and one product with the
+    block-diagonal rotation.  A fixed 6 + ceil(log2 m) sweeps, no
+    convergence test (which would read the device on the host): the
+    off-diagonal mass falls quadratically once it is small, and the
+    marginalization's 87 x 87 blanket is at 1e-9 of its norm after 12."""
+    n = A.shape[-1]
+    m = n + n % 2  # an odd size gains a zero row and column, decoupled from the rest
+    h = m // 2
+    dev = A.device
+    perms = _round_robin(m, dev)
+    inv = torch.argsort(perms, dim=-1)
+    # rel[r]: round r's order -> round r+1's order (the last wraps to the first)
+    rel = torch.gather(inv, 1, perms.roll(-1, 0))
+    X = torch.nn.functional.pad(A.double(), (0, m - n, 0, m - n))
+    X = X[..., perms[0][:, None], perms[0][None, :]]
+    V = torch.eye(m, dtype=X.dtype, device=dev)[:, perms[0]].expand(X.shape).clone()
+    sweeps = 6 + max(m - 1, 1).bit_length()
+    eye_h = torch.eye(h, dtype=X.dtype, device=dev)[:, None, :, None]
+    for sweep in range(sweeps):
+        for r in range(m - 1):
+            if sweep or r:
+                X = X[..., rel[r - 1][:, None], rel[r - 1][None, :]]
+                V = V[..., rel[r - 1]]
+            blocks = X.unflatten(-1, (h, 2)).unflatten(-3, (h, 2)).diagonal(dim1=-4, dim2=-2)
+            app, apq, aqq = blocks[..., 0, 0, :], blocks[..., 0, 1, :], blocks[..., 1, 1, :]
+            # the rotation that zeroes (p, q): tan(2 theta) = 2 apq / (aqq - app)
+            # with |theta| <= pi/4 (Golub & Van Loan, sym.schur2)
+            two = 2.0 * apq
+            theta = torch.where(two == 0, 0.0, 0.5 * torch.atan(two / (aqq - app)))
+            c, s = torch.cos(theta), torch.sin(theta)
+            J = torch.stack([c, s, -s, c], -1).unflatten(-1, (2, 2))  # (..., h, 2, 2)
+            # G: block-diagonal, J's blocks on the round's adjacent pairs
+            G = (J[..., :, :, None, :] * eye_h).flatten(-4, -3).flatten(-2)
+            X = G.transpose(-1, -2) @ X @ G
+            V = V @ G
+    back = inv[-1]
+    lam = torch.diagonal(X, dim1=-2, dim2=-1)[..., back][..., :n]
+    return lam.to(A.dtype), V[..., back][..., :n, :n].to(A.dtype)
+
+
 def _eigh(A, eps_rel):
-    lam, U = torch.linalg.eigh(_sym(A))
+    lam, U = sym_eig(_sym(A))
     thresh = eps_rel * torch.clamp(lam.abs().amax(-1, keepdim=True), min=1e-20)
     return lam, U, lam > thresh
 
@@ -439,39 +516,34 @@ def _chow_liu(new: PriorSet, Ak, Sigma_k, p_keep, km, P: int, psq=pinv_sqrt) -> 
     mi = torch.abs(Ak[D:, D:].reshape(P, 3, P, 3).diagonal(dim1=1, dim2=3).sum(-1))
     mi = mi * fm[:, None] * fm[None, :] * (1.0 - torch.eye(P, dtype=dt_, device=dev))
 
+    # every index below stays on the device (no host read): rows and
+    # columns are cleared by comparison masks, entries picked by take
+    ar = torch.arange(P, device=dev)
     start = torch.argmax(mi)
     a0, b0 = start // P, start % P
-    order = torch.full((P,), -1, dtype=torch.int64, device=dev)
-    order[0], order[1] = a0, b0
-    mi_c = mi.clone()
-    mi_c[a0, :] = 0.0
-    mi_c[:, a0] = 0.0
-    mi_c[:, b0] = 0.0
-    cur, n = b0, torch.tensor(2, device=dev)
+    order = torch.where(ar == 0, a0, torch.where(ar == 1, b0, -1))
+    mi_c = torch.where((ar[:, None] == a0) | (ar[None, :] == a0) | (ar[None, :] == b0), 0.0, mi)
+    cur, n = b0, torch.full((), 2, dtype=torch.int64, device=dev)
     for _ in range(P - 2):
-        row = mi_c[cur]
+        row = take(mi_c, cur)
         nxt = torch.argmax(row)
-        has = row[nxt] > 0
-        order_n = order.clone()
-        order_n[n] = nxt
-        order = torch.where(has, order_n, order)
-        mi_n = mi_c.clone()
-        mi_n[cur, :] = 0.0
-        mi_n[:, cur] = 0.0
+        has = take(row, nxt) > 0
+        order = torch.where(has & (ar == n), nxt, order)
+        mi_n = torch.where((ar[:, None] == cur) | (ar[None, :] == cur), 0.0, mi_c)
         mi_c = torch.where(has, mi_n, mi_c)
         cur = torch.where(has, nxt, cur)
         n = n + has.long()
-    n_chain = torch.where(mi[a0, b0] > 0, n, torch.zeros_like(n))
+    n_chain = torch.where(take(mi.reshape(-1), start) > 0, n, torch.zeros_like(n))
 
     Sk4 = Sigma_k[D:, D:].reshape(P, 3, P, 3)
-    ar = torch.arange(P, device=dev)
     blocks = Sk4[ar, :, ar, :]  # (P,3,3)
     ent = torch.where(km, torch.linalg.det(blocks),
                       torch.full((P,), float("inf"), dtype=blocks.dtype, device=dev))
     root = torch.argmin(ent)
     onehot = (ar == root)
     lp_val = torch.where(onehot[:, None], p_keep, new.lp_val)
-    lp_info = torch.where(onehot[:, None, None], psq(blocks[root])[None], new.lp_sqrt_info)
+    lp_info = torch.where(onehot[:, None, None], psq(take(blocks, root))[None],
+                          new.lp_sqrt_info)
     lp_mask = onehot & km.any()
 
     i = torch.arange(P - 1, device=dev)
@@ -595,8 +667,8 @@ def gauge_transform_priors(priors: PriorSet, R_align, scale, anchor=None) -> Pri
 def shift_priors(priors: PriorSet) -> PriorSet:
     """Re-index a PriorSet after the window shifts left by one slot."""
     roll = lambda x: torch.roll(x, -1, 0)
-    sp_mask = roll(priors.sp_mask).clone()
-    sp_mask[-1] = False
+    K = priors.sp_mask.shape[0]
+    sp_mask = roll(priors.sp_mask) & (torch.arange(K, device=priors.sp_mask.device) < K - 1)
     return priors.replace(
         sp_R=roll(priors.sp_R), sp_t=roll(priors.sp_t), sp_v=roll(priors.sp_v),
         sp_ba=roll(priors.sp_ba), sp_bg=roll(priors.sp_bg),

@@ -68,8 +68,9 @@ def archive(gm: GlobalMap, pos, desc, alive, src_idx=None) -> GlobalMap:
         raise ValueError(f"archive: {n} landmarks do not fit a ring of {A}")
     rank = torch.cumsum(alive.long(), 0) - 1
     slot = torch.where(alive, (gm.head + rank) % A, A)
-    src_val = torch.full((n,), -1 if src_idx is None else int(src_idx), dtype=torch.int64,
-                         device=pos.device)
+    src_val = torch.full((n,), -1, dtype=torch.int64, device=pos.device)
+    if src_idx is not None:  # an int, or a 0-d tensor (read on the device)
+        src_val = torch.zeros_like(src_val) + src_idx
     return gm.replace(pos=put_rows(gm.pos, slot, pos), desc=put_rows(gm.desc, slot, desc),
                       mask=put_rows(gm.mask, slot, torch.ones_like(alive)),
                       src=put_rows(gm.src, slot, src_val), head=(gm.head + alive.sum()) % A)

@@ -9,6 +9,8 @@ each feature a 256-bit BRIEF descriptor, held as a (N,256) bool tensor.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -35,8 +37,9 @@ def fast_score(img, thresh: float = 10.0, arc: int = 9):
     """FAST-N corner score: max over arc starts of the min contiguous arc
     response, for bright and dark arcs.  img: (H,W) float."""
     diffs = torch.stack([_shift2d(img, dy, dx) - img for (dx, dy) in _FAST_CIRCLE])
-    arcs = np.asarray([[(s + i) % 16 for i in range(arc)] for s in range(16)])
-    gathered = diffs[torch.as_tensor(arcs, device=img.device)]  # (16,arc,H,W)
+    arcs = (torch.arange(16, device=img.device)[:, None]
+            + torch.arange(arc, device=img.device)[None, :]) % 16
+    gathered = diffs[arcs]  # (16,arc,H,W)
     bright = gathered.amin(1)
     dark = (-gathered).amin(1)
     score = torch.maximum(bright.amax(0), dark.amax(0))
@@ -84,8 +87,9 @@ def grid_topk(score, allow, gh: int, gw: int, k_per_cell: int, margin: int = 8):
     Ties resolve to the lower in-cell index, as ``jax.lax.top_k`` does."""
     H, W = score.shape
     ch, cw = H // gh, W // gw
-    border = torch.zeros_like(score, dtype=torch.bool)
-    border[margin: H - margin, margin: W - margin] = True
+    ys = torch.arange(H, device=score.device)[:, None]
+    xs = torch.arange(W, device=score.device)[None, :]
+    border = (ys >= margin) & (ys < H - margin) & (xs >= margin) & (xs < W - margin)
     s = torch.where(allow & border, score, torch.zeros_like(score))
     s = s[: gh * ch, : gw * cw].reshape(gh, ch, gw, cw).permute(0, 2, 1, 3)
     s = s.reshape(gh * gw, ch * cw)
@@ -138,8 +142,9 @@ def window_sample(img, centers, pts, ws: int):
     H, W = img.shape
     ws = min(ws, H, W)
     c = torch.nan_to_num(centers, nan=0.0, posinf=0.0, neginf=0.0)
-    hi = torch.tensor([W - ws, H - ws], dtype=c.dtype, device=c.device)
-    base = torch.minimum(torch.clamp(torch.floor(c) - (ws // 2), min=0.0), hi)
+    base = torch.clamp(torch.floor(c) - (ws // 2), min=0.0)
+    base = torch.stack([torch.clamp(base[:, 0], max=W - ws), torch.clamp(base[:, 1], max=H - ws)],
+                       -1)
     loc = pts - base[:, None, :]
     fl = torch.floor(loc)
     fx, fy = loc[..., 0] - fl[..., 0], loc[..., 1] - fl[..., 1]
@@ -169,11 +174,18 @@ _BRIEF = _brief_offsets()
 DESC_BITS = _BRIEF.shape[1]
 
 
+@functools.lru_cache(maxsize=None)
+def _brief_pairs(device):
+    """The pair table on ``device``, copied there once: a CUDA graph cannot
+    capture the host-to-device copy, the first (eager) call makes it."""
+    return torch.as_tensor(_BRIEF, device=device)
+
+
 def brief_describe(img_smooth, uv):
     """256-bit BRIEF descriptors (N,256) bool: bit b is set where the first
     point of pair b is brighter than the second on the smoothed image.  No
     rotation invariance (matching uses predicted search boxes)."""
-    pairs = torch.as_tensor(_BRIEF, device=uv.device)
+    pairs = _brief_pairs(uv.device)
     pts = torch.cat([uv[:, None, :] + pairs[0][None], uv[:, None, :] + pairs[1][None]], 1)
     vals, _ = window_sample(img_smooth, uv, pts, ws=32)
     return vals[:, :DESC_BITS] > vals[:, DESC_BITS:]
@@ -181,6 +193,6 @@ def brief_describe(img_smooth, uv):
 
 def smooth3(img):
     """3x3 binomial blur."""
-    k = torch.tensor([[1, 2, 1], [2, 4, 2], [1, 2, 1]], dtype=img.dtype,
-                     device=img.device) / 16.0
+    w = 2.0 - (torch.arange(3, dtype=img.dtype, device=img.device) - 1.0).abs()  # [1, 2, 1]
+    k = w[:, None] * w[None, :] / 16.0
     return F.conv2d(img[None, None], k[None, None], padding=1)[0, 0]

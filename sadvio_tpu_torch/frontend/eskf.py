@@ -45,6 +45,6 @@ def eskf_update(model, R_f_s, t_f_s, R_prior, t_prior, P_prior, lmk_w, uv, valid
 def imu_prior_covariance(pre_cov, dT_cov_floor=1e-6):
     """6x6 pose prior covariance from the (dphi, dv, dp) preintegration
     covariance: the (dphi, dp) blocks."""
-    sel = torch.tensor([0, 1, 2, 6, 7, 8], device=pre_cov.device)
-    P = pre_cov[sel][:, sel]
+    rows = torch.cat([pre_cov[0:3], pre_cov[6:9]])
+    P = torch.cat([rows[:, 0:3], rows[:, 6:9]], 1)
     return P + torch.eye(6, dtype=pre_cov.dtype, device=pre_cov.device) * dT_cov_floor

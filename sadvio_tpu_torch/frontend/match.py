@@ -51,8 +51,8 @@ def match(desc_a, uv_pred_a, valid_a, desc_b, uv_b, valid_b,
                     torch.full_like(d, BIG))
     rows = torch.arange(d.shape[0], device=d.device)
     best, best_d = first_argmin(d, 1)
-    d2 = d.clone()
-    d2[rows, best] = BIG
+    cols = torch.arange(d.shape[1], device=d.device)
+    d2 = torch.where(cols[None, :] == best[:, None], BIG, d)
     ratio_ok = best_d < ratio * d2.amin(1)
     # mutual best: B's best row for the chosen column must be this row
     best_b, _ = first_argmin(d, 0)

@@ -14,6 +14,7 @@ import torch
 
 from sadvio_tpu_torch.models import cameras
 from sadvio_tpu_torch.utils import geometry as geo
+from sadvio_tpu_torch.utils.struct import take
 
 
 def _solve6(H, b):
@@ -60,7 +61,7 @@ def pnp_ransac(model, R_f_s, t_f_s, p_w, uv, valid, R_pred, t_pred, generator=No
     err = torch.linalg.norm(uv - uv_hat, dim=-1)
     scores = (valid & v & (err < inlier_px)).sum(-1)
     best = torch.argmax(scores)
-    R, t = Rh[best], th[best]
+    R, t = take(Rh, best), take(th, best)
 
     eye6 = torch.eye(6, dtype=p_w.dtype, device=dev)
     for _ in range(refine_iters):

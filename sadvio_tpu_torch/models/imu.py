@@ -285,7 +285,9 @@ def bias_corrected_deltas(pre: Preintegration, ba, bg):
 
 
 def _gravity(like):
-    return torch.tensor([0.0, 0.0, -GRAVITY], dtype=like.dtype, device=like.device)
+    # built on the device (no host copy): [0, 0, -g]
+    return torch.nn.functional.pad(
+        torch.full((1,), -GRAVITY, dtype=like.dtype, device=like.device), (2, 0))
 
 
 def predict(pre: Preintegration, R_i, p_i, v_i, ba=None, bg=None, g=None):

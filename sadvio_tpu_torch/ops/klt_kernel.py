@@ -14,6 +14,10 @@ lock-step tensor ops; ``lk_track_ref``: templates and gates as tensor ops
 around ``lk_iterate_ref``).  Nothing falls back: a build or launch failure
 raises.
 
+A launch recorded into a CUDA graph (the pipeline's captured stages,
+``utils/graphs.py``) runs at each replay, and is counted there: the
+capture's count is taken back and every replay adds it.
+
 Semantics (both versions): the patch corner is floor((u, v) - half) and
 every pixel of the patch shares the fractional offset; bilinear taps read
 the image at edge-clamped integer coordinates; a feature stops at `iters`
@@ -230,8 +234,9 @@ def template_windows(img0, uv0, radius: int):
     H, W = img0.shape
     WS = _template_ws(radius, H, W)
     ctr = torch.floor(torch.nan_to_num(uv0, nan=0.0, posinf=0.0, neginf=0.0))
-    hi = torch.tensor([W - WS, H - WS], dtype=uv0.dtype, device=uv0.device)
-    base = torch.minimum(torch.clamp(ctr - (WS // 2), min=0.0), hi)
+    base = torch.clamp(ctr - (WS // 2), min=0.0)
+    base = torch.stack([torch.clamp(base[:, 0], max=W - WS), torch.clamp(base[:, 1], max=H - WS)],
+                       -1)
     bi = base.long()
     r = torch.arange(WS, device=img0.device)
     rows = (bi[:, 1:2] + r)[:, :, None]

@@ -11,7 +11,9 @@ before any later work, host reads included, touches the result.
 
 The pipeline submits and collects in one call, as the JAX package does, so
 the trajectory is the synchronous one.  On the CPU there are no streams:
-the step runs when it is submitted.
+the step runs when it is submitted.  A captured step (``utils/graphs.py``)
+replays on the side stream from that stream's own graph memory pool, so it
+never shares memory with a front-end graph that could replay beside it.
 """
 
 from __future__ import annotations

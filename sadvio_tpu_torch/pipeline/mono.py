@@ -176,8 +176,7 @@ class MonoSLAM(StereoSLAM):
     # ------------------------------------------------------------------
 
     def _insert_kf(self, pyr_new, tracks, window, obs, imu_chain, pre_cur, R_kf, t_kf, v_kf,
-                   ts: float, slot: int, imu_gap_ok: bool = True, gm=None, lmk_desc=None,
-                   ext_det=None):
+                   ts, slot, imu_gap_ok: bool = True, gm=None, lmk_desc=None, ext_det=None):
         """Insert a keyframe at ``slot``: detect and resurrect in camera 0's
         slot range, write camera 0's observation row, and triangulate every
         slot that has two window observations and no landmark yet.  ``gm``,
@@ -187,19 +186,10 @@ class MonoSLAM(StereoSLAM):
         _, _, _, _, new_uv0, new_v0, window, obs = self._detect_into_slots(
             pyr_new[0][0], tracks, window, obs, R_kf, t_kf, self._cam0_slot_limit)
 
-        prev = max(slot - 1, 0)
-        window = window.replace(
-            R=_set(window.R, slot, R_kf), t=_set(window.t, slot, t_kf),
-            v=_set(window.v, slot, v_kf), ba=_set(window.ba, slot, window.ba[prev]),
-            bg=_set(window.bg, slot, window.bg[prev]),
-            kf_mask=_set(window.kf_mask, slot, True), ts=_set(window.ts, slot, ts))
-        uv, mask = obs.uv.clone(), obs.mask.clone()
-        uv[slot, 0], mask[slot, 0] = new_uv0, new_v0
-        obs = obs.replace(uv=uv, mask=mask)
-        if slot > 0:
-            imu_chain = imu_chain.replace(
-                pre=tree_map(lambda a, b: _set(a, prev, b), imu_chain.pre, pre_cur),
-                mask=_set(imu_chain.mask, prev, (pre_cur.dt > 1e-6) & imu_gap_ok))
+        window = self._write_slot(window, slot, R_kf, t_kf, v_kf, ts)
+        obs = obs.replace(uv=_set(obs.uv, (slot, 0), new_uv0),
+                          mask=_set(obs.mask, (slot, 0), new_v0))
+        imu_chain = self._write_imu(imu_chain, slot, pre_cur, imu_gap_ok)
 
         window = self._triangulate_window(window, obs, 0, ~window.lmk_mask)
         tracks = TrackState(uv=new_uv0[None], valid=new_v0[None], uv_kf=new_uv0[None],

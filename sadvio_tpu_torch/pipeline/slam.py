@@ -75,9 +75,9 @@ from sadvio_tpu_torch.parallel.pipeline_parallel import BackendExecutor
 from sadvio_tpu_torch.pipeline.channels import BBoxChannel, EdgeletChannel, EllipseChannel
 from sadvio_tpu_torch.pipeline.config import SLAMConfig
 from sadvio_tpu_torch.pipeline.line_channel import LineChannel
-from sadvio_tpu_torch.utils import geometry as geo
+from sadvio_tpu_torch.utils import geometry as geo, graphs
 from sadvio_tpu_torch.utils.profiler import Profiler, wait_for
-from sadvio_tpu_torch.utils.struct import Struct, entry_device, tree_map
+from sadvio_tpu_torch.utils.struct import Struct, entry_device, select, take, tree_map
 
 
 @dataclass
@@ -113,11 +113,21 @@ def _check_config(cfg: SLAMConfig, modes):
         raise NotImplementedError(f"config values not supported: {', '.join(bad)}")
 
 
-def _set(x, i, val):
-    """Copy of x with x[i] = val."""
-    x = x.clone()
-    x[i] = val
-    return x
+def _set(x, idx, val):
+    """Copy of x with x[idx] = val.  ``idx``: an index or a tuple of indices
+    into the leading dims, each a Python int or a 0-d integer tensor, which
+    stays on the device (a captured stage reads no index on the host)."""
+    sel = torch.ones((), dtype=torch.bool, device=x.device)
+    for d, i in enumerate(idx if isinstance(idx, tuple) else (idx,)):
+        shape = [1] * x.ndim
+        shape[d] = x.shape[d]
+        sel = sel & (torch.arange(x.shape[d], device=x.device) == i).reshape(shape)
+    return torch.where(sel, val, x)
+
+
+def _has_lines(self, window, obs, imu_chain, priors, fixed_n, lines=None):
+    """The window BA with the line channel's blocks stays eager (not captured yet)."""
+    return lines is not None
 
 
 def _next_pinned(pins, dtype, shape):
@@ -154,10 +164,13 @@ class StereoSLAM:
 
     MODES = ("bimono", "bimonovio")  # the slam_mode values this class runs
     PROFILE_BOOTSTRAP = True  # run(profile=True) times the bootstrap frames' stages too
+    IMU_CAP = 32  # IMU samples per preintegration batch (one captured shape)
+    N_HYP = 48  # PnP RANSAC hypotheses of the frame track
 
     def __init__(self, rig: Rig, config: SLAMConfig, imu_params=None, seed=0, device=None):
         _check_config(config, self.MODES)
         self.device = entry_device(device)
+        self.graphs = graphs.StageGraphs(self.device)  # the captured stages (on the card)
         self.klt_engine = "fused"  # klt.track engine: "fused" | "levels"
         self.rig = rig.to(self.device)
         self.cfg = config
@@ -178,6 +191,7 @@ class StereoSLAM:
                                      gyr_walk=self.imu_params.gyr_walk,
                                      angular=config.optimizer.lower().startswith("angular"))
         self.vio_init_kfs = min(10, self.caps.K - 1)  # 10-KF vision-only bootstrap
+        self._epipolar = config.pose_estimator.lower().startswith("epipolar")
         self._vi_opt_scale = False  # VIInit solves the scale too (monocular)
         self._last_pyr = None  # pyramids of the latest frame, for subclasses
         self.n_resets = 0
@@ -192,6 +206,7 @@ class StereoSLAM:
         self._prefetched = None  # the next frame's device images, from process_frame
         self._pins = [None, None]  # two pinned upload buffers, used in turn
         self._hbufs = [None, None]  # two pinned health buffers, used in turn
+        self._ibufs = [None, None]  # two pinned IMU batch buffers, used in turn
         self._prof = None  # the Profiler of a run(profile=True)
         # multithreading: the window BA on a second CUDA stream
         self.backend_exec = BackendExecutor(self.device) if config.multithreading else None
@@ -284,6 +299,7 @@ class StereoSLAM:
     # stages
     # ------------------------------------------------------------------
 
+    @graphs.stage
     def _pyramids(self, images):
         images = images.to(torch.float32)
         return tuple(tuple(klt.build_pyramid(images[c], self.caps.pyr_levels))
@@ -297,9 +313,16 @@ class StereoSLAM:
         return klt.template_windows_pyr(pyr_new[0], uv_kf0, self.caps.pyr_levels,
                                         self.caps.klt_radius)
 
+    @graphs.stage(key_attrs=("klt_engine",),
+                  eager_if=lambda self, *a, **k: self._epipolar)
     def _frontend(self, pyr_kf, pyr_new, tracks: TrackState, window: WindowState, R_pred,
-                  t_pred, v_pred, R_cur, t_cur, kf_tmpl=None, eskf_on=False, pre_cov=None):
+                  t_pred, v_pred, R_cur, t_cur, kf_tmpl=None, eskf_on=False, pre_cov=None,
+                  sample_idx=None):
         """Track cam0 from the last-KF template, PnP, epipolar gate, ESKF.
+
+        ``sample_idx`` (N_HYP, 4): the PnP RANSAC subsets, drawn by the caller
+        from ``self.gen`` (the essential-matrix RANSAC of ``pose_estimator:
+        epipolar`` draws its own, and that front end stays eager).
 
         Returns (tracks, R_new, t_new, health, dR, dt) with health =
         [pnp_ok, parallax, n_tracked, n_lmk_tracked, R(9), t(3), v(3), P(36)]."""
@@ -312,8 +335,8 @@ class StereoSLAM:
         init = torch.where((has3d & vis)[:, None], uv_proj, tracks.uv[0])
 
         # affine template warp predicted from the geometry
-        k_last = max(self.n_kf - 1, 0)
-        R_kf, t_kf = window.R[k_last], window.t[k_last]
+        k_last = torch.clamp(window.kf_mask.sum() - 1, min=0)
+        R_kf, t_kf = take(window.R, k_last), take(window.t, k_last)
         z_cur = cameras.world_to_cam(R_pred, t_pred, Rfs0, tfs0, lmk)[:, 2]
         R_w_c = R_pred @ Rfs0
         step = (z_cur / cam0.focal)[:, None]
@@ -350,7 +373,7 @@ class StereoSLAM:
                                    levels=self.caps.pyr_levels, radius=self.caps.klt_radius,
                                    warp=A, tmpl_wins=kf_tmpl, engine=self.klt_engine)
 
-        if self.cfg.pose_estimator.lower().startswith("epipolar"):
+        if self._epipolar:
             # essential-matrix RANSAC over the keyframe->frame ray matches is
             # the success check and the inlier gate; the pose stays the
             # motion prediction
@@ -361,7 +384,7 @@ class StereoSLAM:
         else:
             lmk_ok = ok & has3d & window.lmk_mask
             R_new, t_new, inliers, pnp_ok, _ = pnp.pnp_ransac(
-                cam0, Rfs0, tfs0, lmk, uv1, lmk_ok, R_pred, t_pred, self.gen)
+                cam0, Rfs0, tfs0, lmk, uv1, lmk_ok, R_pred, t_pred, sample_idx=sample_idx)
             # constant-velocity sanity at 1000%: a PnP translation 10x away
             # from the predicted one forces the prediction and reports failure
             R_kfT = R_kf.T
@@ -474,12 +497,14 @@ class StereoSLAM:
         obs = obs.replace(mask=obs.mask & ~claimed[None, None, :])
         return uv_det, v_det, take, slot_of_det, new_uv0, new_v0, window, obs
 
+    @graphs.stage(key_attrs=("klt_engine",))
     def _insert_kf(self, pyr_new, tracks: TrackState, window: WindowState, obs: Observations,
-                   imu_chain: ImuChain, pre_cur, R_kf, t_kf, v_kf, ts: float, slot: int,
+                   imu_chain: ImuChain, pre_cur, R_kf, t_kf, v_kf, ts, slot,
                    imu_gap_ok: bool = True, gm=None, lmk_desc=None, ext_det=None):
         """Insert a keyframe at ``slot``: detect (or take the csv keypoints
         ``ext_det``), resurrect, stereo-track, triangulate, write the
-        observation rows.
+        observation rows.  ``ts`` (the keyframe's stamp, in ``window.ts``'s
+        dtype) and ``slot`` (int64) are 0-d tensors.
 
         Returns (tracks, window, obs, imu_chain); with a global map ``gm``
         also (lmk_desc, gm_counts, gm_pack): the slot descriptors refreshed
@@ -538,20 +563,11 @@ class StereoSLAM:
         ok1 = ok1 & new_v0
 
         # 4. write the window slot
-        prev = max(slot - 1, 0)
-        window = window.replace(
-            R=_set(window.R, slot, R_kf), t=_set(window.t, slot, t_kf),
-            v=_set(window.v, slot, v_kf), ba=_set(window.ba, slot, window.ba[prev]),
-            bg=_set(window.bg, slot, window.bg[prev]),
-            kf_mask=_set(window.kf_mask, slot, True), ts=_set(window.ts, slot, ts),
+        window = self._write_slot(window, slot, R_kf, t_kf, v_kf, ts).replace(
             lmk=lmk, lmk_mask=lmk_mask)
         obs = obs.replace(uv=_set(obs.uv, slot, torch.stack([new_uv0, uv1])),
                           mask=_set(obs.mask, slot, torch.stack([new_v0, ok1])))
-        if slot > 0:
-            # a >1 s inter-KF gap drops the IMU factor (verdict made on the host in f64)
-            imu_chain = imu_chain.replace(
-                pre=tree_map(lambda a, b: _set(a, prev, b), imu_chain.pre, pre_cur),
-                mask=_set(imu_chain.mask, prev, (pre_cur.dt > 1e-6) & imu_gap_ok))
+        imu_chain = self._write_imu(imu_chain, slot, pre_cur, imu_gap_ok)
         tracks = TrackState(uv=torch.stack([new_uv0, uv1]), valid=torch.stack([new_v0, ok1]),
                             uv_kf=torch.stack([new_uv0, uv1]), has3d=lmk_mask)
         if gm is not None:
@@ -561,6 +577,28 @@ class StereoSLAM:
             return tracks, window, obs, imu_chain, lmk_desc, gm_counts, gm_pack
         return tracks, window, obs, imu_chain
 
+    @staticmethod
+    def _write_slot(window, slot, R_kf, t_kf, v_kf, ts):
+        """The window with keyframe ``slot`` (a 0-d tensor) set to the pose,
+        velocity and stamp, and its biases carried over from the slot before."""
+        prev = torch.clamp(slot - 1, min=0)
+        return window.replace(
+            R=_set(window.R, slot, R_kf), t=_set(window.t, slot, t_kf),
+            v=_set(window.v, slot, v_kf), ba=_set(window.ba, slot, take(window.ba, prev)),
+            bg=_set(window.bg, slot, take(window.bg, prev)),
+            kf_mask=_set(window.kf_mask, slot, True), ts=_set(window.ts, slot, ts))
+
+    @staticmethod
+    def _write_imu(imu_chain, slot, pre_cur, imu_gap_ok):
+        """The chain with ``pre_cur`` as the factor into ``slot`` (none into
+        slot 0); a >1 s inter-KF gap, judged on the host in f64, drops it."""
+        prev = torch.clamp(slot - 1, min=0)
+        new = imu_chain.replace(
+            pre=tree_map(lambda a, b: _set(a, prev, b), imu_chain.pre, pre_cur),
+            mask=_set(imu_chain.mask, prev, (pre_cur.dt > 1e-6) & imu_gap_ok))
+        return select(slot > 0, new, imu_chain)
+
+    @graphs.stage(eager_if=_has_lines)
     def _backend(self, window, obs, imu_chain, priors, fixed_n: int, lines=None):
         """Window BA + outlier removal.  ``lines``: an optional LineBlock
         whose lines constrain poses; the optimized endpoints come back in
@@ -583,12 +621,14 @@ class StereoSLAM:
             stats["line_obs_mask"] = lines.obs_mask & ~(lines.mask[None, None, :] & (perr > 3.0))
         return new_window, obs, stats
 
+    @graphs.stage
     def _marg_roll(self, window, obs, imu_chain, priors, tracks, vio: bool, gm=None,
                    lmk_desc=None, arch_idx=None):
         """Marginalize slot 0 and shift the window left by one.  With a
         global map ``gm`` the landmarks that leave the map are archived
-        (position + BRIEF descriptor) and the new map is returned before
-        the overflow count."""
+        (position + BRIEF descriptor, and ``arch_idx``, a 0-d tensor, as
+        their source keyframe) and the new map is returned before the
+        overflow count."""
         if self.cfg.marginalization:
             new_priors, info = marg.marginalize(
                 window, obs, self.rig, imu_chain, priors, self._ba_opts, vio=vio,
@@ -606,7 +646,7 @@ class StereoSLAM:
         if gm is not None:
             gm = gmap.archive(gm, window.lmk, lmk_desc, marg_lmk, src_idx=arch_idx)
         roll = lambda x: torch.roll(x, -1, 0)
-        last_off = lambda x: _set(roll(x), -1, False)
+        last_off = lambda x: _set(roll(x), x.shape[0] - 1, False)
         window = window.replace(
             R=roll(window.R), t=roll(window.t), v=roll(window.v), ba=roll(window.ba),
             bg=roll(window.bg), ts=roll(window.ts), kf_mask=last_off(window.kf_mask),
@@ -620,6 +660,14 @@ class StereoSLAM:
             return window, obs, imu_chain, new_priors, tracks, gm, n_overflow, degen
         return window, obs, imu_chain, new_priors, tracks, n_overflow, degen
 
+    @graphs.stage
+    def _roll_edge(self, window, obs, imu_chain, vio: bool):
+        """The pose-graph edge from slot 0 to slot 1, packed: dx (6), info
+        (36), shared landmarks (1)."""
+        dx_e, inf_e, n_sh = marg.marginalize_relative(window, obs, self.rig, imu_chain,
+                                                      self._ba_opts, vio=vio)
+        return torch.cat([dx_e, inf_e.reshape(-1), n_sh.float()[None]])
+
     # ------------------------------------------------------------------
     # host-side frame loop
     # ------------------------------------------------------------------
@@ -628,20 +676,57 @@ class StereoSLAM:
         """IMU prediction once VIInit has given velocities and biases, else
         the constant-velocity model (see the module docstring)."""
         if self.vio and self._imu_n > 0 and self.vi_initialized:
-            k = self.n_kf - 1
             w = self.window
-            return imu_mod.predict(self.pre_cur, w.R[k], w.t[k], w.v[k], ba=w.ba[k], bg=w.bg[k])
-        R_p, t_p = geo.pose_compose(self.R_cur, self.t_cur, *self.dT)
-        return R_p, t_p, self.v_cur
+            return self._predict_imu(self.pre_cur, w.R, w.t, w.v, w.ba, w.bg,
+                                     self._int_scalar(self.n_kf - 1))
+        return self._predict_cv(self.R_cur, self.t_cur, *self.dT, self.v_cur)
+
+    @graphs.stage
+    def _predict_imu(self, pre, R, t, v, ba, bg, k):
+        return imu_mod.predict(pre, take(R, k), take(t, k), take(v, k), ba=take(ba, k),
+                               bg=take(bg, k))
+
+    @graphs.stage
+    def _predict_cv(self, R, t, dR, dt, v):
+        R_p, t_p = geo.pose_compose(R, t, dR, dt)
+        return R_p, t_p, v
+
+    @graphs.stage
+    def _preint(self, batch, pre):
+        """One (IMU_CAP, 7) batch [acc, gyr, dt] into ``pre``; padding rows
+        have dt = 0 and are exact no-ops."""
+        return imu_mod.preintegrate(batch[:, 0:3], batch[:, 3:6], batch[:, 6], pre.ba_lin,
+                                    pre.bg_lin, self.imu_params, init=pre)
+
+    def _pack_imu(self, frame):
+        """The frame's IMU samples as (n_batches, IMU_CAP, 7) float32 host
+        batches, zero-padded: one shape, whatever the sample count."""
+        n, cap = len(frame.dt), self.IMU_CAP
+        out = np.zeros((-(-n // cap), cap, 7), np.float32)
+        flat = out.reshape(-1, 7)
+        flat[:n, 0:3] = frame.acc
+        flat[:n, 3:6] = frame.gyr
+        flat[:n, 6] = frame.dt
+        return out
 
     def _accumulate_imu(self, frame):
+        """Preintegrate the frame's samples in fixed-shape batches: one
+        ``_preint`` call (one graph replay on the card) per IMU_CAP samples.
+        On the card the batches go up through a pinned buffer, copied
+        without blocking."""
         n = len(frame.dt)
         if n == 0:
             return
-        t = lambda x: torch.as_tensor(np.array(x, np.float32), device=self.device)
-        pre = self.pre_cur
-        self.pre_cur = imu_mod.preintegrate(t(frame.acc), t(frame.gyr), t(frame.dt), pre.ba_lin,
-                                            pre.bg_lin, self.imu_params, init=pre)
+        packed = self._pack_imu(frame)
+        if self.device.type == "cuda":
+            buf = _next_pinned(self._ibufs, torch.float32, packed.shape)
+            buf.numpy()[...] = packed
+            batches = buf.to(self.device, non_blocking=True)
+            _mark_pinned(self._ibufs, buf)
+        else:
+            batches = torch.from_numpy(packed)
+        for b in range(batches.shape[0]):
+            self.pre_cur = self._preint(batches[b], self.pre_cur)
         self._imu_n += n
 
     def _gravity_align_init(self, frame):
@@ -725,7 +810,7 @@ class StereoSLAM:
         self.R_cur, self.t_cur = R0, t0
         ins = self._insert_kf(
             pyr_new, self.tracks, self.window, self.obs, self.imu, self.pre_cur,
-            R0, t0, torch.zeros(3, device=dev), float(frame.ts), 0,
+            R0, t0, torch.zeros(3, device=dev), self._ts_scalar(frame.ts), self._int_scalar(0),
             gm=self.global_map_state, lmk_desc=self.lmk_desc, ext_det=self._csv_det(frame))
         self.tracks, self.window, self.obs, self.imu = ins[:4]
         R0_h, t0_h = R0.cpu().numpy(), t0.cpu().numpy()
@@ -755,6 +840,15 @@ class StereoSLAM:
         if self._line_ch is not None:
             out.update(self._line_ch.on_keyframe_pre_ba(pyr_new[0][0], pyr_new[1][0], R0, t0, 0))
         return out
+
+    def _ts_scalar(self, ts):
+        """A keyframe stamp as a 0-d tensor in the window's stamp dtype."""
+        return torch.full((), float(ts), dtype=self.window.ts.dtype, device=self.device)
+
+    def _int_scalar(self, i):
+        """A slot or an index as a 0-d int64 tensor (a stage argument that
+        changes per call must not key a captured variant)."""
+        return torch.full((), int(i), dtype=torch.int64, device=self.device)
 
     def _upload_images(self, frame):
         """Host-to-device copy of ``frame.images`` in the provider's dtype
@@ -806,11 +900,15 @@ class StereoSLAM:
         R_pred, t_pred, v_pred = self._predict_pose(frame)
         if prof:
             prof.tic()
+        # the RANSAC subsets come from the generator here, outside the
+        # captured front end: the eager and captured runs draw alike
+        sample_idx = None if self._epipolar else torch.randint(
+            0, self.caps.L, (self.N_HYP, 4), generator=self.gen, device=dev)
         self.tracks, R_new, t_new, health, dR_cv, dt_cv = self._frontend(
             self.kf_pyr, pyr_new, self.tracks, self.window, R_pred, t_pred, v_pred,
             self.R_cur, self.t_cur, kf_tmpl=self.kf_tmpl,
             eskf_on=bool(self.vi_initialized and self._imu_n > 0),
-            pre_cov=self.pre_cur.cov if self.vio else None)
+            pre_cov=self.pre_cur.cov if self.vio else None, sample_idx=sample_idx)
         # the health vector: the frame's one device-to-host copy.  With
         # async_health (not under a profiler) it is read one frame late, so
         # no frame waits for its own front end; the first tracked frame and
@@ -891,9 +989,7 @@ class StereoSLAM:
             if prof and self.cfg.pose_graph:
                 prof.tic()
             if self.cfg.pose_graph:
-                dx_e, inf_e, n_sh = marg.marginalize_relative(
-                    self.window, self.obs, self.rig, self.imu, self._ba_opts, vio=vio_now)
-                pose0 += [dx_e, inf_e.reshape(-1), n_sh.float()[None]]
+                pose0.append(self._roll_edge(self.window, self.obs, self.imu, vio_now))
             pk0 = torch.cat(pose0).cpu().numpy()
             self.archived_kf.append((self.kf_ts[0], pk0[:9].reshape(3, 3), pk0[9:12].copy()))
             if self.cfg.pose_graph and pk0[54] > 0:  # shared landmarks: the edge is informative
@@ -907,7 +1003,7 @@ class StereoSLAM:
                 prof.tic()
             mr = self._marg_roll(self.window, self.obs, self.imu, self.priors, self.tracks,
                                  vio_now, gm=self.global_map_state, lmk_desc=self.lmk_desc,
-                                 arch_idx=len(self.archived_kf) - 1)
+                                 arch_idx=self._int_scalar(len(self.archived_kf) - 1))
             if self.global_map_state is not None:
                 (self.window, self.obs, self.imu, self.priors, self.tracks,
                  self.global_map_state, n_ovf, degen) = mr
@@ -930,8 +1026,9 @@ class StereoSLAM:
         gap_ok = (not self.kf_ts) or (frame.ts - self.kf_ts[-1]) <= 1.0
         ins = self._insert_kf(
             pyr_new, self.tracks, self.window, self.obs, self.imu, self.pre_cur,
-            R_new, t_new, v_pred, float(frame.ts), slot, imu_gap_ok=bool(gap_ok),
-            gm=self.global_map_state, lmk_desc=self.lmk_desc, ext_det=self._csv_det(frame))
+            R_new, t_new, v_pred, self._ts_scalar(frame.ts), self._int_scalar(slot),
+            imu_gap_ok=bool(gap_ok), gm=self.global_map_state, lmk_desc=self.lmk_desc,
+            ext_det=self._csv_det(frame))
         self.tracks, self.window, self.obs, self.imu = ins[:4]
         gm_counts = gm_pack = None
         if self.global_map_state is not None:

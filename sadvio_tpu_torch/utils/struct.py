@@ -57,6 +57,13 @@ def tree_unflatten(template, leaves):
     return tree_map(lambda _: next(it), template)
 
 
+def take(x, i):
+    """``x[i]`` for a 0-d integer tensor ``i``, read on the device: indexing
+    with a 0-d tensor reads it on the host, which a CUDA graph cannot
+    capture."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
 def select(cond, a, b):
     """Leafwise ``torch.where(cond, a, b)`` over two equal containers."""
     return tree_map(lambda x, y: torch.where(cond, x, y), a, b)

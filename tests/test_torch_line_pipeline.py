@@ -77,6 +77,7 @@ def jax_pnp_draws(ts, key):
     def pnp_fed(cam, Rfs, tfs, p_w, uv, valid, R_pred, t_pred, generator=None, **kw):
         k, state["key"] = jax.random.split(state["key"])
         idx = torch.as_tensor(np.asarray(_draws(k, p_w.shape[0])))
+        kw.pop("sample_idx", None)  # the port's own draws, replaced by the JAX run's
         return orig_pnp(cam, Rfs, tfs, p_w, uv, valid, R_pred, t_pred, sample_idx=idx, **kw)
 
     def insert_fed(*a, **kw):

@@ -79,8 +79,11 @@ def spawn(worker, n, args, workdir):
     try:
         for r, log in enumerate(logs):
             with open(log, "wb") as fh:
+                # -X faulthandler: a rank killed by a signal (an abort in
+                # native code) leaves every thread's Python stack in its log
                 procs.append(subprocess.Popen(
-                    [sys.executable, "-c", source, str(r), str(n), rdzv, *map(str, args)],
+                    [sys.executable, "-X", "faulthandler", "-c", source, str(r), str(n), rdzv,
+                     *map(str, args)],
                     stdout=fh, stderr=subprocess.STDOUT, env=env, cwd=REPO))
         while why is None:
             codes = [p.poll() for p in procs]
