@@ -943,7 +943,7 @@ def phase_graphs(world, frames, device, cap):
     _require(drot.max() <= GRAPH_ROT_TOL_RAD, f"rotation gap {drot.max():.3e} rad")
     _require(cap["lk_track"] == eager["lk_track"],
              f"lk_track launches {cap['lk_track']} captured, {eager['lk_track']} eager")
-    stats = slam_c.graphs.stats()
+    stats = _graph_stats(slam_c.graphs)
     for name in CAPTURED_STAGES:
         st = stats.get(name, {"variants": 0, "replays": 0})
         _require(st["replays"] > 0, f"stage {name} was never replayed ({st})")
@@ -978,6 +978,18 @@ def phase_graphs(world, frames, device, cap):
           f"in all after both runs")
     return {"stages": rows, "captured": fc, "eager": fe, "bit_for_bit": same_bits,
             "max_pos_gap_m": float(dpos.max()), "max_rot_gap_rad": float(drot.max())}
+
+
+def _graph_stats(graphs):
+    """Per captured stage: variants captured, capture ms in all, replays and
+    the host ms of one replay (the mean)."""
+    out = {}
+    for name, v in graphs.variants.items():
+        n = sum(x.replays for x in v.values())
+        out[name] = {"variants": len(v), "capture_ms": sum(x.capture_ms for x in v.values()),
+                     "replays": n, "replay_host_ms":
+                     1e3 * sum(x.replay_s for x in v.values()) / max(n, 1)}
+    return out
 
 
 def _graph_profile_fresh(slam):
@@ -1115,8 +1127,9 @@ def phase_long_run(device, n_frames=LONG_FRAMES, seed=LONG_SEED):
               f"{np.median(ms):.3f} ms max {np.max(ms):.3f} ms")
     print(f"long run: stage optimize_archive: 1 call {opt_ms:.1f} ms ({len(nodes)} nodes, "
           f"{len(slam.pose_graph_edges)} edges)")
-    print(f"long run: captured stages (variants, capture ms, replays): "
-          f"{ {k: tuple(round(x, 1) for x in v.values()) for k, v in slam.graphs.stats().items()} }")
+    stats = {k: tuple(round(x, 1) for x in v.values())
+             for k, v in _graph_stats(slam.graphs).items()}
+    print(f"long run: captured stages (variants, capture ms, replays, host ms per replay): {stats}")
     _require(rec["captured"] is not None, f"VIO roll {LONG_CAPTURE_ROLL} never came")
     rec["timed"] = timed
     return rec

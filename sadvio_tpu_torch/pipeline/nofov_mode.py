@@ -184,11 +184,11 @@ class NoFovSLAM(MonoSLAM):
 
     # -- frame hook ----------------------------------------------------------
 
-    def process_frame(self, frame, images_dev=None, prefetch_frame=None) -> dict:
+    def _process_frame(self, frame, images_dev, prefetch_frame) -> dict:
         pyr_prev_kf = self.kf_pyr
         n_arch0 = len(self.archived_kf)
         n_resets0 = self.n_resets
-        out = super().process_frame(frame, images_dev=images_dev, prefetch_frame=prefetch_frame)
+        out = super()._process_frame(frame, images_dev, prefetch_frame)
         if not self.initialized or self.n_resets != n_resets0:
             self.v1_last[:] = False
             self.hist_mask[:] = False

@@ -54,7 +54,6 @@ frame's own health (a blocking read at candidate rate only).
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -76,7 +75,7 @@ from sadvio_tpu_torch.pipeline.channels import BBoxChannel, EdgeletChannel, Elli
 from sadvio_tpu_torch.pipeline.config import SLAMConfig
 from sadvio_tpu_torch.pipeline.line_channel import LineChannel
 from sadvio_tpu_torch.utils import geometry as geo, graphs
-from sadvio_tpu_torch.utils.profiler import Profiler, wait_for
+from sadvio_tpu_torch.utils.profiler import Profiler, Recorder
 from sadvio_tpu_torch.utils.struct import Struct, entry_device, select, take, tree_map
 
 
@@ -130,14 +129,16 @@ def _has_lines(self, window, obs, imu_chain, priors, fixed_n, lines=None):
     return lines is not None
 
 
-def _next_pinned(pins, dtype, shape):
+def _next_pinned(pins, dtype, shape, trace):
     """The next of the two pinned host buffers in ``pins`` (a list of two
     (buffer, event) slots used in turn), once the copy recorded behind its
-    last use has finished; a buffer of another shape or dtype is replaced."""
+    last use has finished (the span ``pinned.wait``); a buffer of another
+    shape or dtype is replaced."""
     pins[:] = pins[1:] + pins[:1]
     buf, done = pins[0] or (None, None)
     if done is not None:
-        done.synchronize()
+        with trace.span("pinned.wait"):
+            done.synchronize()
     if buf is None or tuple(buf.shape) != tuple(shape) or buf.dtype != dtype:
         buf = torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
     return buf
@@ -170,7 +171,9 @@ class StereoSLAM:
     def __init__(self, rig: Rig, config: SLAMConfig, imu_params=None, seed=0, device=None):
         _check_config(config, self.MODES)
         self.device = entry_device(device)
-        self.graphs = graphs.StageGraphs(self.device)  # the captured stages (on the card)
+        # the pipeline's spans and counts (utils/profiler.py), always on
+        self.trace = Recorder()
+        self.graphs = graphs.StageGraphs(self.device, self.trace)  # the captured stages
         self.klt_engine = "fused"  # klt.track engine: "fused" | "levels"
         self.rig = rig.to(self.device)
         self.cfg = config
@@ -719,7 +722,7 @@ class StereoSLAM:
             return
         packed = self._pack_imu(frame)
         if self.device.type == "cuda":
-            buf = _next_pinned(self._ibufs, torch.float32, packed.shape)
+            buf = _next_pinned(self._ibufs, torch.float32, packed.shape, self.trace)
             buf.numpy()[...] = packed
             batches = buf.to(self.device, non_blocking=True)
             _mark_pinned(self._ibufs, buf)
@@ -752,7 +755,7 @@ class StereoSLAM:
         its previous copy has fired."""
         if self.device.type != "cuda":
             return health, None
-        buf = _next_pinned(self._hbufs, health.dtype, health.shape)
+        buf = _next_pinned(self._hbufs, health.dtype, health.shape, self.trace)
         buf.copy_(health, non_blocking=True)
         return buf, _mark_pinned(self._hbufs, buf)
 
@@ -760,7 +763,8 @@ class StereoSLAM:
         """The health vector of a fetch, on the host; waits for its copy."""
         buf, done = fetch
         if done is not None:
-            done.synchronize()
+            with self.trace.span("health.wait"):
+                done.synchronize()
         return buf.numpy().copy()
 
     def _health_to_out(self, out):
@@ -858,13 +862,14 @@ class StereoSLAM:
         before it, and a buffer is refilled only once the event recorded
         behind its previous copy has fired."""
         imgs = np.ascontiguousarray(frame.images)
-        if self.device.type != "cuda":
-            return torch.as_tensor(imgs.copy(), device=self.device)
-        buf = _next_pinned(self._pins, torch.from_numpy(imgs).dtype, imgs.shape)
-        buf.numpy()[...] = imgs
-        out = buf.to(self.device, non_blocking=True)
-        _mark_pinned(self._pins, buf)
-        return out
+        with self.trace.span("upload"):
+            if self.device.type != "cuda":
+                return torch.as_tensor(imgs.copy(), device=self.device)
+            buf = _next_pinned(self._pins, torch.from_numpy(imgs).dtype, imgs.shape, self.trace)
+            buf.numpy()[...] = imgs
+            out = buf.to(self.device, non_blocking=True)
+            _mark_pinned(self._pins, buf)
+            return out
 
     def process_frame(self, frame, images_dev=None, prefetch_frame=None) -> dict:
         """One frame of the rig (+ the IMU samples since the previous frame).
@@ -873,61 +878,67 @@ class StereoSLAM:
         previous call's prefetch).  prefetch_frame: the next frame, whose
         images are uploaded after this frame's IMU batch, so the copy runs
         during this frame's work; the device copy is left in
-        ``self._prefetched``.  Under ``run(profile=True)`` every stage is
-        timed to the end of its device work, which serializes the loop."""
+        ``self._prefetched``.  The frame is a ``frame`` span of
+        ``self.trace``, the parent of every span of its work.  Under
+        ``run(profile=True)`` every stage is timed to the end of its device
+        work, which serializes the loop, and the frame's time to the end of
+        its pose goes to ``frame_total`` and ``kf_step`` or ``track_step``."""
+        tr = self.trace
+        with tr.frame(frame.ts, self._prof):
+            tr.prof = self._prof if (self.initialized or self.PROFILE_BOOTSTRAP) else None
+            out = self._process_frame(frame, images_dev, prefetch_frame)
+            tr.end_frame(out["is_kf"], self.t_cur)
+        return out
+
+    def _process_frame(self, frame, images_dev, prefetch_frame) -> dict:
         dev = self.device
-        prof = self._prof if (self.initialized or self.PROFILE_BOOTSTRAP) else None
+        tr = self.trace
+        prof = tr.prof
         if self.vio:
-            if prof:
-                prof.tic()
-            self._accumulate_imu(frame)
-            if prof:
-                prof.toc("imu_preint", block=self.pre_cur.dp)
+            with tr.span("imu_preint", timed=True):
+                self._accumulate_imu(frame)
+                tr.wait(self.pre_cur.dp)
         if images_dev is None:
             images_dev = self._upload_images(frame)
         self._prefetched = (self._upload_images(prefetch_frame) if prefetch_frame is not None
                             else None)
-        if prof:
-            prof.tic()
-        pyr_new = self._pyramids(images_dev)
-        if prof:
-            prof.toc("pyramids", block=pyr_new[0][0])
+        with tr.span("pyramids", timed=True):
+            pyr_new = self._pyramids(images_dev)
+            tr.wait(pyr_new[0][0])
         out = {"ts": frame.ts, "is_kf": False, "ok": True}
         self._last_pyr = pyr_new
         if not self.initialized:
             return self._bootstrap(frame, pyr_new, out)
 
         R_pred, t_pred, v_pred = self._predict_pose(frame)
-        if prof:
-            prof.tic()
-        # the RANSAC subsets come from the generator here, outside the
-        # captured front end: the eager and captured runs draw alike
-        sample_idx = None if self._epipolar else torch.randint(
-            0, self.caps.L, (self.N_HYP, 4), generator=self.gen, device=dev)
-        self.tracks, R_new, t_new, health, dR_cv, dt_cv = self._frontend(
-            self.kf_pyr, pyr_new, self.tracks, self.window, R_pred, t_pred, v_pred,
-            self.R_cur, self.t_cur, kf_tmpl=self.kf_tmpl,
-            eskf_on=bool(self.vi_initialized and self._imu_n > 0),
-            pre_cov=self.pre_cur.cov if self.vio else None, sample_idx=sample_idx)
-        # the health vector: the frame's one device-to-host copy.  With
-        # async_health (not under a profiler) it is read one frame late, so
-        # no frame waits for its own front end; the first tracked frame and
-        # the first after a keyframe (whose parallax was measured against
-        # the old template) read their own at once
-        fetch = self._health_copy(health)
-        if self.cfg.async_health and prof is None:
-            pend, self._health_pend = self._health_pend, (frame.ts, fetch)
-            if pend is not None:
-                self._ingest_health(pend[0], self._read_health(pend[1]))
-            if self._health_stale or self._last_health is None:
+        # the health copy waits for the front end, so the span needs no wait
+        with tr.span("track_predict_filter", timed=True):
+            # the RANSAC subsets come from the generator here, outside the
+            # captured front end: the eager and captured runs draw alike
+            sample_idx = None if self._epipolar else torch.randint(
+                0, self.caps.L, (self.N_HYP, 4), generator=self.gen, device=dev)
+            self.tracks, R_new, t_new, health, dR_cv, dt_cv = self._frontend(
+                self.kf_pyr, pyr_new, self.tracks, self.window, R_pred, t_pred, v_pred,
+                self.R_cur, self.t_cur, kf_tmpl=self.kf_tmpl,
+                eskf_on=bool(self.vi_initialized and self._imu_n > 0),
+                pre_cov=self.pre_cur.cov if self.vio else None, sample_idx=sample_idx)
+            # the health vector: the frame's one device-to-host copy.  With
+            # async_health (not under a profiler) it is read one frame late,
+            # so no frame waits for its own front end; the first tracked
+            # frame and the first after a keyframe (whose parallax was
+            # measured against the old template) read their own at once
+            fetch = self._health_copy(health)
+            if self.cfg.async_health and prof is None:
+                pend, self._health_pend = self._health_pend, (frame.ts, fetch)
+                if pend is not None:
+                    self._ingest_health(pend[0], self._read_health(pend[1]))
+                if self._health_stale or self._last_health is None:
+                    self._ingest_health(frame.ts, self._read_health(fetch))
+                    self._health_pend = None
+                    self._health_stale = False
+            else:
                 self._ingest_health(frame.ts, self._read_health(fetch))
                 self._health_pend = None
-                self._health_stale = False
-        else:
-            self._ingest_health(frame.ts, self._read_health(fetch))
-            self._health_pend = None
-        if prof:
-            prof.toc("track_predict_filter")  # the health copy waited for it
         self.dT = (dR_cv, dt_cv)
         self.R_cur, self.t_cur, self.v_cur = R_new, t_new, v_pred
         ts_h, health_h = self._health_to_out(out)
@@ -986,31 +997,30 @@ class StereoSLAM:
             # the host mirror
             vio_now = self.vio and self.vi_initialized
             pose0 = [self.window.R[0].reshape(-1), self.window.t[0]]
-            if prof and self.cfg.pose_graph:
-                prof.tic()
-            if self.cfg.pose_graph:
-                pose0.append(self._roll_edge(self.window, self.obs, self.imu, vio_now))
-            pk0 = torch.cat(pose0).cpu().numpy()
-            self.archived_kf.append((self.kf_ts[0], pk0[:9].reshape(3, 3), pk0[9:12].copy()))
-            if self.cfg.pose_graph and pk0[54] > 0:  # shared landmarks: the edge is informative
-                inf_np = pg.inflate_edge_info(pk0[18:54].reshape(6, 6), self.kf_cov[0],
-                                              self.kf_cov[1])
-                self.pose_graph_edges.append((self.kf_ts[0], self.kf_ts[1], pk0[12:18].copy(),
-                                              inf_np))
-            if prof and self.cfg.pose_graph:
-                prof.toc("nfr_edge")
-            if prof:
-                prof.tic()
-            mr = self._marg_roll(self.window, self.obs, self.imu, self.priors, self.tracks,
-                                 vio_now, gm=self.global_map_state, lmk_desc=self.lmk_desc,
-                                 arch_idx=self._int_scalar(len(self.archived_kf) - 1))
-            if self.global_map_state is not None:
-                (self.window, self.obs, self.imu, self.priors, self.tracks,
-                 self.global_map_state, n_ovf, degen) = mr
-            else:
-                self.window, self.obs, self.imu, self.priors, self.tracks, n_ovf, degen = mr
-            if prof:
-                prof.toc("marginalization", block=self.window.R)
+            # the leaving keyframe's archive, and its edge with pose_graph
+            # (the profile mode times the span only then, as the JAX package)
+            with tr.span("nfr_edge", timed=self.cfg.pose_graph):
+                if self.cfg.pose_graph:
+                    pose0.append(self._roll_edge(self.window, self.obs, self.imu, vio_now))
+                with tr.span("archive.wait"):
+                    pk0 = torch.cat(pose0).cpu().numpy()
+                self.archived_kf.append((self.kf_ts[0], pk0[:9].reshape(3, 3),
+                                         pk0[9:12].copy()))
+                if self.cfg.pose_graph and pk0[54] > 0:  # shared landmarks: an informative edge
+                    inf_np = pg.inflate_edge_info(pk0[18:54].reshape(6, 6), self.kf_cov[0],
+                                                  self.kf_cov[1])
+                    self.pose_graph_edges.append((self.kf_ts[0], self.kf_ts[1],
+                                                  pk0[12:18].copy(), inf_np))
+            with tr.span("marginalization", timed=True):
+                mr = self._marg_roll(self.window, self.obs, self.imu, self.priors, self.tracks,
+                                     vio_now, gm=self.global_map_state, lmk_desc=self.lmk_desc,
+                                     arch_idx=self._int_scalar(len(self.archived_kf) - 1))
+                if self.global_map_state is not None:
+                    (self.window, self.obs, self.imu, self.priors, self.tracks,
+                     self.global_map_state, n_ovf, degen) = mr
+                else:
+                    self.window, self.obs, self.imu, self.priors, self.tracks, n_ovf, degen = mr
+                tr.wait(self.window.R)
             did_marg = True
             if self.cfg.marginalization:
                 self._have_priors = True
@@ -1021,71 +1031,67 @@ class StereoSLAM:
             self.n_kf = K - 1
             self._maybe_compact_archive()
         slot = self.n_kf
-        if prof:
-            prof.tic()
-        gap_ok = (not self.kf_ts) or (frame.ts - self.kf_ts[-1]) <= 1.0
-        ins = self._insert_kf(
-            pyr_new, self.tracks, self.window, self.obs, self.imu, self.pre_cur,
-            R_new, t_new, v_pred, self._ts_scalar(frame.ts), self._int_scalar(slot),
-            imu_gap_ok=bool(gap_ok), gm=self.global_map_state, lmk_desc=self.lmk_desc,
-            ext_det=self._csv_det(frame))
-        self.tracks, self.window, self.obs, self.imu = ins[:4]
-        gm_counts = gm_pack = None
-        if self.global_map_state is not None:
-            self.lmk_desc, gm_counts, gm_pack = ins[4:]
-        self.n_kf += 1
-        self.kf_ts.append(frame.ts)
-        self.kf_cov.append(self._cov_h)
-        self.kf_pyr = pyr_new
-        self.kf_tmpl = self._template_cache(pyr_new, self.tracks.uv_kf[0])
-        self.pre_cur = self._pre_id.replace(ba_lin=self.window.ba[slot],
-                                            bg_lin=self.window.bg[slot])
-        self._imu_n = 0
-        if prof:
-            # detection, stereo track, triangulation and the template cache
-            prof.toc("detect_lmk_init", block=self.tracks.uv)
+        # detection, stereo track, triangulation and the template cache
+        with tr.span("detect_lmk_init", timed=True):
+            gap_ok = (not self.kf_ts) or (frame.ts - self.kf_ts[-1]) <= 1.0
+            ins = self._insert_kf(
+                pyr_new, self.tracks, self.window, self.obs, self.imu, self.pre_cur,
+                R_new, t_new, v_pred, self._ts_scalar(frame.ts), self._int_scalar(slot),
+                imu_gap_ok=bool(gap_ok), gm=self.global_map_state, lmk_desc=self.lmk_desc,
+                ext_det=self._csv_det(frame))
+            self.tracks, self.window, self.obs, self.imu = ins[:4]
+            gm_counts = gm_pack = None
+            if self.global_map_state is not None:
+                self.lmk_desc, gm_counts, gm_pack = ins[4:]
+            self.n_kf += 1
+            self.kf_ts.append(frame.ts)
+            self.kf_cov.append(self._cov_h)
+            self.kf_pyr = pyr_new
+            self.kf_tmpl = self._template_cache(pyr_new, self.tracks.uv_kf[0])
+            self.pre_cur = self._pre_id.replace(ba_lin=self.window.ba[slot],
+                                                bg_lin=self.window.bg[slot])
+            self._imu_n = 0
+            tr.wait(self.tracks.uv)
 
         # the line channel detects and associates at the new keyframe before
         # the BA, and its lines enter the BA
         ba_lines = None
         if self._line_ch is not None:
-            if prof:
-                prof.tic()
-            out.update(self._line_ch.on_keyframe_pre_ba(pyr_new[0][0], pyr_new[1][0], R_new,
-                                                        t_new, slot))
-            ba_lines = self._line_ch.ba_block()
-            if prof:
-                prof.toc("line_channel", block=ba_lines.ends)
+            with tr.span("line_channel", timed=True):
+                out.update(self._line_ch.on_keyframe_pre_ba(pyr_new[0][0], pyr_new[1][0], R_new,
+                                                            t_new, slot))
+                ba_lines = self._line_ch.ba_block()
+                tr.wait(ba_lines.ends)
         fixed_n = 1 if not self._have_priors else 0
         fixed_n = max(fixed_n, self.cfg.fixed_frame_number if self.n_kf > 1 else 1)
         # vision-only window BA until VIInit has run
         imu_for_ba = (self.imu if self.vi_initialized else
                       self.imu.replace(mask=torch.zeros_like(self.imu.mask)))
-        if prof:
-            prof.tic()
-        if self.backend_exec is not None:
-            self.backend_exec.submit_fn(self._backend, self.window, self.obs, imu_for_ba,
-                                        self.priors, fixed_n, ba_lines)
-            self.window, self.obs, stats = self.backend_exec.collect()
-        else:
-            self.window, self.obs, stats = self._backend(self.window, self.obs, imu_for_ba,
-                                                         self.priors, fixed_n, ba_lines)
-        if ba_lines is not None:
-            self._line_ch.apply_ba(stats["line_ends"], stats["line_obs_mask"])
-        if prof:
-            prof.toc("window_opt", block=self.window.R)
+        with tr.span("window_opt", timed=True):
+            if self.backend_exec is not None:
+                self.backend_exec.submit_fn(self._backend, self.window, self.obs, imu_for_ba,
+                                            self.priors, fixed_n, ba_lines)
+                self.window, self.obs, stats = self.backend_exec.collect()
+            else:
+                self.window, self.obs, stats = self._backend(self.window, self.obs, imu_for_ba,
+                                                             self.priors, fixed_n, ba_lines)
+            if ba_lines is not None:
+                self._line_ch.apply_ba(stats["line_ends"], stats["line_obs_mask"])
+            tr.wait(self.window.R)
         self.R_cur = self.window.R[slot]
         self.t_cur = self.window.t[slot]
         self.v_cur = self.window.v[slot]
         self.tracks = self.tracks.replace(has3d=self.window.lmk_mask)
         if self.vio and not self.vi_initialized and self.n_kf >= self.vio_init_kfs:
-            self._run_vi_init()
+            with tr.span("vi_init"):
+                self._run_vi_init()
         w = self.window
         parts = [w.R[slot].reshape(-1), w.t[slot], w.v[slot], w.ba[slot], w.bg[slot],
                  torch.stack([n_ovf.float(), degen.float(), stats["cost"].float()])]
         if gm_counts is not None:
             parts.append(gm_counts.float())
-        pk = torch.cat(parts).cpu().numpy()  # the keyframe's one state copy
+        with tr.span("kf.wait"):
+            pk = torch.cat(parts).cpu().numpy()  # the keyframe's one state copy
         self.kf_traj.append((frame.ts, pk[:9].reshape(3, 3), pk[9:12]))
         self._ba_h = pk[15:18].copy()
         self._bg_h = pk[18:21].copy()
@@ -1109,13 +1115,11 @@ class StereoSLAM:
                     out["loop_closure"] = lc
         out["vi_initialized"] = self.vi_initialized
         if self.mesher is not None:  # densification at keyframe rate
-            if prof:
-                prof.tic()
-            imgs = torch.stack([pyr_new[c][0] for c in range(2)])
-            self.mesher.update(imgs, self.window, self.R_cur, self.t_cur)
-            out["mesh_triangles"] = int(self.mesher.tri_mask.sum())
-            if prof:
-                prof.toc("mesh", block=self.mesher.tri_mask)
+            with tr.span("mesh", timed=True):
+                imgs = torch.stack([pyr_new[c][0] for c in range(2)])
+                self.mesher.update(imgs, self.window, self.R_cur, self.t_cur)
+                out["mesh_triangles"] = int(self.mesher.tri_mask.sum())
+                tr.wait(self.mesher.tri_mask)
         img1 = pyr_new[1][0] if self.C > 1 else pyr_new[0][0]
         for ch in self.channels:
             if ch is not self._line_ch:  # the line channel ran before the BA
@@ -1374,27 +1378,16 @@ class StereoSLAM:
     def drive(self, frames, log_every=0):
         """The frame loop over an iterable of frames, one frame ahead: with
         ``self.prefetch`` the next frame's images are uploaded during the
-        current frame.  Under a profiler each frame's wall time, to the end
-        of its device work, goes to ``frame_total`` and to ``kf_step`` or
-        ``track_step``.  Returns the number of frames."""
-        prof = self._prof
+        current frame.  Returns the number of frames."""
         it = iter(frames)
         frame = next(it, None)
         pending = self._upload_images(frame) if frame is not None and self.prefetch else None
         n = 0
         while frame is not None:
             nxt = next(it, None)
-            if prof:
-                t0 = time.perf_counter()
             out = self.process_frame(frame, images_dev=pending,
                                      prefetch_frame=nxt if self.prefetch else None)
             pending = self._prefetched
-            if prof:
-                wait_for(self.t_cur)
-                dt = time.perf_counter() - t0
-                for name in ("frame_total", "kf_step" if out.get("is_kf") else "track_step"):
-                    prof.sums[name] += dt
-                    prof.counts[name] += 1
             frame = nxt
             n += 1
             if log_every and n % log_every == 0:

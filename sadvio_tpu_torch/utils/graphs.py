@@ -28,6 +28,15 @@ Kernel launch counts (``ops.klt_kernel``): the launches a capture records
 did not run, so they are taken off the counts after the capture and added
 back at every replay.
 
+Spans (``utils/profiler.Recorder``, the instance's ``graphs.trace``): every
+stage call is a span named after the stage; a replay adds ``graphs.launch``
+(``CUDAGraph.replay()``; count: the graph's nodes, read once at capture).
+The host's other work of a replay (the key, the copies in, the clones out)
+is in ``Variant.replay_s`` with the launch.  The launch enters no profiler
+range of its own: in a trace the graph's kernels stay under the stage's
+range, and a device gap named by the bare stage is the host inside the
+stage call (the key, the copies, the launch or the clones).
+
 On the CPU the method runs as it is.  ``eager()`` runs the plain methods on
 the card too (the counterpart of ``jax.disable_jit``), for comparisons and
 debugging.  On the card every stage call, eager or captured, prefers
@@ -39,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import ctypes
 import dataclasses
 import functools
 import time
@@ -151,6 +161,24 @@ def _add_launches(delta, sign=1):
 # ----------------------------------------------------------------------
 
 
+def _captured_nodes(stream) -> int:
+    """The nodes captured so far into the graph that ``stream`` is capturing
+    (``cuStreamGetCaptureInfo_v2`` of ``libcuda``, then ``cuGraphGetNodes``
+    on the graph it names; neither adds to the capture)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    status, cid, graph = ctypes.c_int(), ctypes.c_uint64(), ctypes.c_void_p()
+    deps, n_deps, n = ctypes.c_void_p(), ctypes.c_size_t(), ctypes.c_size_t()
+    err = cuda.cuStreamGetCaptureInfo_v2(
+        ctypes.c_void_p(stream.cuda_stream), ctypes.byref(status), ctypes.byref(cid),
+        ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(n_deps))
+    if err or not graph.value:
+        raise RuntimeError(f"cuStreamGetCaptureInfo_v2 failed with CUresult {err}")
+    err = cuda.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {err}")
+    return n.value
+
+
 @dataclasses.dataclass
 class Variant:
     """One captured variant of a stage."""
@@ -161,6 +189,7 @@ class Variant:
     static_out: list
     launches: dict  # kernel launches recorded in the graph, per counter
     capture_ms: float
+    nodes: int  # nodes of the graph
     replays: int = 0
     replay_s: float = 0.0  # host seconds in the replays: copies in, launch, clones out
 
@@ -170,24 +199,15 @@ class StageGraphs:
     side stream their warm-ups and captures run on, and one memory pool per
     replay stream."""
 
-    def __init__(self, device):
+    def __init__(self, device, trace):
         self.device = torch.device(device)
+        self.trace = trace  # the pipeline's span recorder (utils/profiler.py)
         self.variants = {}  # stage name -> {key: Variant}
         self._pools = {}  # replay stream -> graph memory pool
         self._side = None
 
-    def stats(self):
-        """Per stage: variants captured, capture ms in all, replays and the
-        host ms of one replay (the mean)."""
-        out = {}
-        for name, v in self.variants.items():
-            n = sum(x.replays for x in v.values())
-            out[name] = {"variants": len(v), "capture_ms": sum(x.capture_ms for x in v.values()),
-                         "replays": n, "replay_host_ms":
-                         1e3 * sum(x.replay_s for x in v.values()) / max(n, 1)}
-        return out
-
     def call(self, name, fn, obj, args, kwargs, key_attrs):
+        """One call of the stage ``name``, inside its span (``stage``)."""
         t0 = time.perf_counter()
         leaves = []
         spec = _flatten((args, kwargs), leaves)
@@ -203,7 +223,8 @@ class StageGraphs:
         with _no_sync():
             for dst, src in zip(var.static_in, leaves):
                 dst.copy_(src)
-            var.graph.replay()
+            with self.trace.span("graphs.launch", var.nodes, annotate=False):
+                var.graph.replay()
             out = [t.clone() for t in var.static_out]
         _add_launches(var.launches)
         var.replays += 1
@@ -237,31 +258,35 @@ class StageGraphs:
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=pool, stream=side):
             s_out = fn(obj, *s_args, **s_kwargs)
+            nodes = _captured_nodes(side)
         capture_ms = (time.perf_counter() - t0) * 1e3
         after = _launch_counts()
         recorded = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
         _add_launches(recorded, -1)  # recorded, not launched: counted at each replay
         static_out = []
         out_spec = _flatten(s_out, static_out)
-        return out, Variant(graph, static_in, out_spec, static_out, recorded, capture_ms)
+        return out, Variant(graph, static_in, out_spec, static_out, recorded, capture_ms, nodes)
 
 
 def stage(fn=None, *, key_attrs=(), eager_if=None):
     """Decorate a stage method of a class whose instances carry ``device``
     and ``graphs`` (a ``StageGraphs``).  ``key_attrs``: attributes of the
     instance that select code.  ``eager_if(self, *args, **kwargs)``: calls
-    for which the stage stays eager on the card (a path not captured yet)."""
+    for which the stage stays eager on the card (a path not captured yet).
+    Every call, eager or captured, is a span named after the stage."""
     if fn is None:
         return functools.partial(stage, key_attrs=key_attrs, eager_if=eager_if)
+    name = fn.__name__
 
     @functools.wraps(fn)
     def wrapper(self, *args, **kwargs):
-        if self.device.type != "cuda":
-            return fn(self, *args, **kwargs)
-        with _cusolver():
-            if _EAGER.get() or (eager_if is not None and eager_if(self, *args, **kwargs)):
+        with self.graphs.trace.span(name):
+            if self.device.type != "cuda":
                 return fn(self, *args, **kwargs)
-            return self.graphs.call(fn.__name__, fn, self, args, kwargs, key_attrs)
+            with _cusolver():
+                if _EAGER.get() or (eager_if is not None and eager_if(self, *args, **kwargs)):
+                    return fn(self, *args, **kwargs)
+                return self.graphs.call(name, fn, self, args, kwargs, key_attrs)
 
     wrapper.captured = True
     return wrapper
