@@ -752,6 +752,7 @@ def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profil
     `eager` runs the stages plainly (graphs.eager()) instead of replaying
     their captured graphs; `stage_host` logs the host's ms in each captured
     stage's calls (no synchronisation)."""
+    from sadvio_tpu_torch.models import imu
     from sadvio_tpu_torch.ops import klt_kernel
     from sadvio_tpu_torch.pipeline import synthetic
     from sadvio_tpu_torch.utils import graphs
@@ -785,6 +786,7 @@ def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profil
         slam._backend = keeping
     stage_log = _time_stages(slam) if stages else None
     host_log = _time_stages(slam, CAPTURED_STAGES, sync=False) if stage_host else None
+    imu.preintegrate.launches = 0
     klt_kernel.lk_iterate.launches = 0
     klt_kernel.lk_track.launches = 0
     klt_kernel.lk_track.launches_by_levels = {}
@@ -814,6 +816,7 @@ def run_slam(world, frames, device, engine, caps=MAIN_CAPS, stages=False, profil
            "frame_ms": np.asarray(frame_ms), "is_kf": np.asarray(is_kf),
            "lk_iterate": klt_kernel.lk_iterate.launches, "lk_track": klt_kernel.lk_track.launches,
            "lk_track_by_levels": dict(klt_kernel.lk_track.launches_by_levels),
+           "imu_preint": imu.preintegrate.launches,
            "stages": stage_log, "outs": outs, "captured": captured.get("state"),
            "ba_problems": ba_problems}
     est = np.asarray([t for _, _, t in slam.traj])
@@ -846,7 +849,7 @@ def _describe(rec):
             f"included; first frame {ms[0]:.1f} ms), tracking frames median "
             f"{np.median(ms[~kf]):.2f} ms p90 {np.percentile(ms[~kf], 90):.2f} ms, run "
             f"{rec['run_s']:.1f} s, launches lk_track={rec['lk_track']} "
-            f"lk_iterate={rec['lk_iterate']}")
+            f"lk_iterate={rec['lk_iterate']} imu_preint={rec['imu_preint']}")
 
 
 def phase_main_path(world, frames, device):
@@ -867,6 +870,9 @@ def phase_main_path(world, frames, device):
     _require(slam.n_resets == 0, "the main path reset")
     _require(rec["lk_track"] == _accounted_tracks(rec),
              f"{rec['lk_track']} lk_track launches for {_accounted_tracks(rec)} klt.track calls")
+    preint = _graph_stats(slam.graphs)["_preint"]  # a warm-up launch per variant, then replays
+    _require(rec["imu_preint"] == preint["variants"] + preint["replays"] > 0,
+             f"{rec['imu_preint']} IMU kernel launches for {preint} _preint calls")
     _require(slam.window.R.is_cuda and slam.window.lmk.is_cuda and slam.obs.uv.is_cuda,
              "window state left the card")
     return rec
@@ -943,6 +949,8 @@ def phase_graphs(world, frames, device, cap):
     _require(drot.max() <= GRAPH_ROT_TOL_RAD, f"rotation gap {drot.max():.3e} rad")
     _require(cap["lk_track"] == eager["lk_track"],
              f"lk_track launches {cap['lk_track']} captured, {eager['lk_track']} eager")
+    _require(cap["imu_preint"] == eager["imu_preint"],
+             f"IMU kernel launches {cap['imu_preint']} captured, {eager['imu_preint']} eager")
     stats = _graph_stats(slam_c.graphs)
     for name in CAPTURED_STAGES:
         st = stats.get(name, {"variants": 0, "replays": 0})
@@ -2358,6 +2366,11 @@ def phase_euroc(world, frames, device, measure=False):
 
 PAR_B = 8  # windows in the batched BA: the main path's last 8 window BAs
 PAR_IMU_N = (10, 200)  # one 20 Hz frame's samples, a 1 s keyframe interval
+# the IMU kernel against the plain loop: (samples, packed in IMU_CAP-row
+# batches chained as StereoSLAM._accumulate_imu makes them, or one call)
+PAR_KERNEL_CASES = ((1, True), (10, True), (32, True), (33, True), (200, True), (200, False))
+PAR_KERNEL_TOL = 1e-5  # max |kernel - plain| / max |plain|, every Preintegration field
+PAR_KERNEL_BIAS = ((0.05, -0.02, 0.03), (1e-3, 2e-3, -1e-3))  # ba, bg linearization point
 PAR_SHARD_N = 256  # samples of the time-sharded preintegration over 2 ranks
 PAR_RANKS = 2
 PAR_T_TOL_M = 1e-4  # batched against separate solves, on t
@@ -2447,9 +2460,75 @@ def _event_host_ms(fn, reps=5):
     return float(np.median(dev)), float(np.median(host))
 
 
+def _imu_kernel_vs_plain(acc, gyr, dt, device):
+    """The IMU preintegration kernel (``imu.preintegrate`` on CUDA tensors)
+    against its plain loop (``imu.preintegrate_ref``, on the card too) on the
+    main world's samples, for each of PAR_KERNEL_CASES: the largest
+    |kernel - plain| over the field's largest |plain| for every field; the
+    device ms of both (``_graph_ms``: the kernel 50 times in one graph, the
+    plain loop twice) and the host ms as Python calls them (``_event_host_ms``);
+    and the host µs a call of the wrapper at the main path's 32-row batch."""
+    from sadvio_tpu_torch.models import imu
+    from sadvio_tpu_torch.pipeline.slam import StereoSLAM
+
+    cap, params = StereoSLAM.IMU_CAP, imu.ImuParams.euroc()
+    ba, bg = (torch.tensor(b, device=device) for b in PAR_KERNEL_BIAS)
+    pre0 = imu.Preintegration.identity(device=device).replace(ba_lin=ba, bg_lin=bg)
+    fields = ("dR", "dv", "dp", "cov", "J_dR_bg", "J_dv_ba", "J_dv_bg", "J_dp_ba", "J_dp_bg",
+              "dt")
+
+    def pack(n, rows):  # the first n samples in `rows` rows, dt = 0 on the padding
+        buf = np.zeros((rows, 7), np.float32)
+        buf[:n, 0:3], buf[:n, 3:6], buf[:n, 6] = acc[:n], gyr[:n], dt[:n]
+        return torch.as_tensor(buf, device=device)
+
+    for n, packed in PAR_KERNEL_CASES:
+        batches = (pack(n, -(-n // cap) * cap).reshape(-1, cap, 7) if packed
+                   else pack(n, n)[None])
+
+        def run(fn):
+            pre = pre0
+            for b in batches:
+                pre = fn(b[:, 0:3], b[:, 3:6], b[:, 6], pre.ba_lin, pre.bg_lin, params, init=pre)
+            return pre
+
+        launches = imu.preintegrate.launches
+        kern, plain = run(imu.preintegrate), run(imu.preintegrate_ref)
+        _require(imu.preintegrate.launches - launches == len(batches),
+                 f"imu kernel: {imu.preintegrate.launches - launches} launches for "
+                 f"{len(batches)} batches")
+        gaps = {}
+        for f in fields:
+            k, p = getattr(kern, f).double(), getattr(plain, f).double()
+            gaps[f] = float((k - p).abs().max() / p.abs().max().clamp_min(1e-30))
+        dev_k = _graph_ms(lambda: run(imu.preintegrate))
+        dev_p = _graph_ms(lambda: run(imu.preintegrate_ref), n=2, reps=3)
+        host_k = _event_host_ms(lambda: run(imu.preintegrate))[1]
+        host_p = _event_host_ms(lambda: run(imu.preintegrate_ref))[1]
+        worst = max(gaps, key=gaps.get)
+        how = f"{len(batches)} x {cap} rows, chained" if packed else "one call"
+        print(f"imu kernel: N={n} ({how}): worst field gap {gaps[worst]:.3e} ({worst}); "
+              + ", ".join(f"{f} {g:.2e}" for f, g in gaps.items())
+              + f"; device ms (graph replays) kernel {dev_k:.5f}, plain loop {dev_p:.3f}; host ms "
+              f"as Python calls them kernel {host_k:.4f}, plain loop {host_p:.3f}")
+        _require(gaps[worst] <= PAR_KERNEL_TOL, f"imu kernel N={n} ({how}): {gaps}")
+    b = pack(10, cap)  # a frame's samples in one batch, as the main path calls it
+    calls = 200
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        imu.preintegrate(b[:, 0:3], b[:, 3:6], b[:, 6], ba, bg, params, init=pre0)
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    print(f"imu kernel: wrapper host {host_us:.1f} µs a call ({calls} calls of a {cap}-row "
+          f"batch, enqueue only)")
+
+
 def phase_parallel(main_rec, frames, device):
-    """The parallel modules on the card: preintegrate_assoc against
-    preintegrate at N=10 and N=200 (the main world's IMU samples); the
+    """The parallel modules on the card: the IMU preintegration kernel
+    against its plain loop on every field (``_imu_kernel_vs_plain``);
+    preintegrate_assoc against preintegrate at N=10 and N=200 (the main
+    world's IMU samples); the
     batched BA of the main path's last 8 window BAs (K=11, C=2, L=512, P=48)
     against 8 separate solves, timed in turns; and 2 ranks sharing the card
     (gloo over CUDA tensors): the landmark-sharded solve of the last window
@@ -2472,6 +2551,7 @@ def phase_parallel(main_rec, frames, device):
     cat = lambda key: np.concatenate([np.asarray(getattr(f, key), np.float32)
                                       for f in frames[1:]])
     acc, gyr, dt = cat("acc"), cat("gyr"), cat("dt")
+    _imu_kernel_vs_plain(acc, gyr, dt, device)
     params = imu.ImuParams.euroc()
     slam = main_rec["slam"]
     z = torch.zeros(3, device=device)

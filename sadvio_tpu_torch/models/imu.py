@@ -1,11 +1,14 @@
 """On-manifold IMU preintegration (Forster style) on tensors.
 
 Port of ``sadvio_tpu/models/imu.py``.  The JAX package integrates with a
-masked ``lax.scan``; here the per-sample terms that do not depend on the
-running state (bias-corrected rates, the incremental rotations and their
-right Jacobians) are computed for the whole buffer at once and the
-recursion is a Python loop.  Samples with dt == 0 stay strict no-ops, as in
-the reference.
+masked ``lax.scan``.  Here ``preintegrate`` runs the whole recursion of a
+buffer in one launch of a hand-written kernel on a CUDA tensor
+(``ops/csrc/imu_preint.cu``, built at first use with the LK kernels and
+loaded with ctypes) and the plain version ``preintegrate_ref`` on a CPU
+tensor: the per-sample terms that do not depend on the running state
+(bias-corrected rates, the incremental rotations and their right Jacobians)
+computed for the whole buffer at once, then a Python loop.  Samples with
+dt <= 0 stay strict no-ops, as in the reference.
 
 ``chunk_summary`` / ``combine_summary`` / ``preintegrate_assoc`` are the
 log-depth form of the same recursion: a chunk of samples reduces to a
@@ -17,10 +20,13 @@ sequential ``preintegrate``, as the JAX pipeline does.
 
 from __future__ import annotations
 
+import ctypes
+import math
 from dataclasses import dataclass
 
 import torch
 
+from sadvio_tpu_torch.ops import klt_kernel
 from sadvio_tpu_torch.utils import geometry as geo
 from sadvio_tpu_torch.utils.struct import Struct, select, tree_map
 
@@ -75,11 +81,82 @@ class Preintegration(Struct):
         return tree_map(lambda x: x[k], self)
 
 
+# The fields a preintegration carries through the recursion, with their
+# shapes, in the order of the kernel's (142,) output buffer.
+_STATE_SHAPES = {"dR": (3, 3), "dv": (3,), "dp": (3,), "cov": (9, 9), "J_dR_bg": (3, 3),
+                 "J_dv_ba": (3, 3), "J_dv_bg": (3, 3), "J_dp_ba": (3, 3), "J_dp_bg": (3, 3),
+                 "dt": ()}
+_STATE_SIZES = [math.prod(s) for s in _STATE_SHAPES.values()]
+_STATE_SIZE = sum(_STATE_SIZES)  # kState in ops/csrc/imu_preint.cu
+
+
+def _check(acc, gyr, dt, ba, bg, init):
+    """What the kernel takes, checked on every device, so that a CPU run
+    meets a call that the card would refuse."""
+    ts = {"acc": acc, "gyr": gyr, "dt": dt, "ba": ba, "bg": bg}
+    if init is not None:
+        ts.update({f"init.{f}": getattr(init, f) for f in _STATE_SHAPES})
+    if any(not isinstance(x, torch.Tensor) for x in ts.values()):
+        raise TypeError("preintegrate takes tensors")
+    bad = [k for k, x in ts.items() if x.dtype != torch.float32]
+    if bad:
+        raise TypeError(f"preintegrate takes float32 tensors; not: {bad}")
+    if any(x.device != acc.device for x in ts.values()):
+        raise ValueError("preintegrate: all tensors must be on one device")
+    n = acc.shape[0] if acc.ndim == 2 else -1
+    want = {"acc": (n, 3), "gyr": (n, 3), "dt": (n,), "ba": (3,), "bg": (3,),
+            **{f"init.{f}": s for f, s in _STATE_SHAPES.items()}}
+    bad = [f"{k} {tuple(x.shape)}" for k, x in ts.items() if tuple(x.shape) != want[k]]
+    if bad:
+        raise ValueError(f"preintegrate: acc, gyr (N,3), dt (N,), ba, bg (3,) and the init "
+                         f"fields' own shapes expected; got {bad}")
+    if (acc.stride(1) != 1 or gyr.stride(1) != 1
+            or not all(x.is_contiguous() for k, x in ts.items() if k not in ("acc", "gyr", "dt"))):
+        raise ValueError("preintegrate: the rows of acc and gyr, ba, bg and the init fields "
+                         "must be contiguous")
+
+
 def preintegrate(acc, gyr, dt, ba, bg, params: ImuParams, init: Preintegration | None = None):
     """Integrate a buffer of IMU samples; padding samples must have dt == 0.
 
-    acc, gyr: (N,3); dt: (N,); ba, bg: (3,) bias linearization point.
-    """
+    acc, gyr: (N,3) float32 with contiguous rows; dt: (N,); ba, bg: (3,)
+    bias linearization point; ``init``: the preintegration to continue.  On
+    a CUDA tensor one launch of ``ops/csrc/imu_preint.cu`` on the current
+    stream (no host synchronisation), counted in ``preintegrate.launches``;
+    on a CPU tensor ``preintegrate_ref``.  Nothing falls back: a launch
+    failure raises."""
+    _check(acc, gyr, dt, ba, bg, init)
+    dev = acc.device
+    if dev.type == "cpu":
+        return preintegrate_ref(acc, gyr, dt, ba, bg, params, init)
+    if dev.type != "cuda":
+        raise ValueError(f"preintegrate: unsupported device {dev}")
+    if init is None:
+        init = Preintegration.identity(acc.dtype, dev)
+    out = torch.empty(_STATE_SIZE, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = klt_kernel._library().imu_preint_launch(
+            acc.data_ptr(), gyr.data_ptr(), dt.data_ptr(), ba.data_ptr(), bg.data_ptr(),
+            *[getattr(init, f).data_ptr() for f in _STATE_SHAPES], out.data_ptr(), acc.shape[0],
+            acc.stride(0), gyr.stride(0), dt.stride(0),
+            ctypes.c_float(params.gyr_noise ** 2), ctypes.c_float(params.acc_noise ** 2),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"preintegrate kernel launch failed: CUDA error {err}")
+    preintegrate.launches += 1
+    fields = {f: x.view(shape) for (f, shape), x in zip(_STATE_SHAPES.items(),
+                                                         out.split(_STATE_SIZES))}
+    return Preintegration(**fields, ba_lin=ba, bg_lin=bg)
+
+
+preintegrate.launches = 0
+
+
+def preintegrate_ref(acc, gyr, dt, ba, bg, params: ImuParams,
+                     init: Preintegration | None = None):
+    """Plain version of the kernel on any device: the per-sample terms for
+    the whole buffer, then one Python loop step per sample."""
     dtype, dev = acc.dtype, acc.device
     if init is None:
         init = Preintegration.identity(dtype, dev)

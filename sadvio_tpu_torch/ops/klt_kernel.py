@@ -14,6 +14,10 @@ lock-step tensor ops; ``lk_track_ref``: templates and gates as tensor ops
 around ``lk_iterate_ref``).  Nothing falls back: a build or launch failure
 raises.
 
+The same library holds the IMU preintegration kernel
+(``csrc/imu_preint.cu``, launched by ``models/imu.py:preintegrate``), so one
+build at first use compiles every kernel of the port in parallel.
+
 A launch recorded into a CUDA graph (the pipeline's captured stages,
 ``utils/graphs.py``) runs at each replay, and is counted there: the
 capture's count is taken back and every replay adds it.
@@ -39,7 +43,7 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("lk_iterate.cu", "lk_track.cu")
+SOURCES = ("lk_iterate.cu", "lk_track.cu", "imu_preint.cu")
 _HEADERS = ("lk_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 MAX_S = 15  # the kernels keep ceil(S^2 / 32) pixels per lane in registers
@@ -53,7 +57,7 @@ def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     found = str(cand) if cand.exists() else shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the LK kernels cannot be built")
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the kernels cannot be built")
     return found
 
 
@@ -105,6 +109,8 @@ def _library(clocks: bool = False):
     lib.lk_iterate_launch.restype = i32
     lib.lk_track_launch.argtypes = [ptr] * 11 + [i32] * 7 + [f32] * 4 + [ptr]
     lib.lk_track_launch.restype = i32
+    lib.imu_preint_launch.argtypes = [ptr] * 16 + [i32] * 4 + [f32] * 2 + [ptr]
+    lib.imu_preint_launch.restype = i32
     if clocks:
         lib.lk_track_clocks.argtypes = [ptr, i32]
         lib.lk_track_clocks.restype = i32

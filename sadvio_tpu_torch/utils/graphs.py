@@ -24,9 +24,9 @@ stream's pool.  Replays run under ``torch.cuda.set_sync_debug_mode("error")``:
 a host synchronisation there raises.  A capture that fails and a replay
 that raises propagate: nothing falls back to the eager method.
 
-Kernel launch counts (``ops.klt_kernel``): the launches a capture records
-did not run, so they are taken off the counts after the capture and added
-back at every replay.
+Kernel launch counts (``ops.klt_kernel``, ``models.imu.preintegrate``): the
+launches a capture records did not run, so they are taken off the counts
+after the capture and added back at every replay.
 
 Spans (``utils/profiler.Recorder``, the instance's ``graphs.trace``): every
 stage call is a span named after the stage; a replay adds ``graphs.launch``
@@ -55,6 +55,7 @@ import time
 
 import torch
 
+from sadvio_tpu_torch.models import imu
 from sadvio_tpu_torch.ops import klt_kernel
 
 MAX_VARIANTS = 16  # more variants of one stage mean a per-call scalar leaked into the key
@@ -136,7 +137,7 @@ def _unflatten(spec, leaves):
 # kernel launch counts
 # ----------------------------------------------------------------------
 
-_COUNTED = (klt_kernel.lk_iterate, klt_kernel.lk_track)
+_COUNTED = (klt_kernel.lk_iterate, klt_kernel.lk_track, imu.preintegrate)
 
 
 def _launch_counts():
