@@ -1503,14 +1503,16 @@ def phase_mono(world, frames, device, vio):
     """Monocular VO ("euroc_mono") or VIO ("euroc_monovio") on camera 0 of
     the main path's world: the bootstrap fires, Sim3 ATE after it < 0.08 m;
     with the IMU, VIInit with scale fires and the metric span is within
-    0.7-1.4 of the truth's.  The inputs of one frame track of the mono run
-    are kept for the kernel check at that call shape."""
+    0.7-1.4 of the truth's; either run is held bit for bit to the same run
+    eager.  The inputs of one frame track of the mono run are kept for the
+    kernel check at that call shape."""
     if vio:
         preset, kw = "euroc_monovio", dict(max_movement_parallax=MONOVIO_MAX_PARALLAX)
         rec = run_mono(world, frames, device, preset, vio, **kw)
     else:
-        preset = "euroc_mono"
+        preset, kw = "euroc_mono", {}
         rec = run_mono(world, frames, device, preset, vio, capture=MONO_CAPTURE_CALL)
+    _held_to_eager(preset, rec, lambda: run_mono(world, frames, device, preset, vio, **kw))
     slam = rec["slam"]
     _mode_summary(preset, rec, f" | Sim3 ATE {rec['ate_sim3'] * 1e3:.3f} mm (per gauge segment "
                   f"{[round(x * 1e3, 3) for x in rec['ate_segments']]}), SE3 ATE "
@@ -1524,6 +1526,25 @@ def phase_mono(world, frames, device, vio):
     else:
         _require(rec["capture"] is not None, "mono: the frame track to replay never came")
     return rec
+
+
+def _held_to_eager(name, rec, rerun):
+    """The captured run ``rec`` of a mode held to ``rerun()`` under
+    graphs.eager(): the same keyframes and every frame's pose bit for bit,
+    and the keyframe insertion replayed as a graph."""
+    from sadvio_tpu_torch.utils import graphs
+
+    with graphs.eager():
+        eager = rerun()
+    rot = lambda r: np.stack([R for _, R, _ in r["slam"].traj])
+    same = bool((rec["is_kf"] == eager["is_kf"]).all() and (rec["est"] == eager["est"]).all()
+                and (rot(rec) == rot(eager)).all())
+    st = _graph_stats(rec["slam"].graphs).get("_insert_kf", {"variants": 0, "replays": 0})
+    print(f"{name}: captured vs eager over {rec['frames']} frames: bit for bit {same}; "
+          f"_insert_kf {st['variants']} variants, {st['replays']} replays")
+    _require(not eager["slam"].graphs.variants, f"{name}: the eager run captured a stage")
+    _require(same, f"{name}: the captured run's poses differ from the eager run's")
+    _require(st["replays"] > 0, f"{name}: the keyframe insertion was never replayed")
 
 
 def make_nofov_world(device, n_frames=NOFOV_FRAMES):
@@ -1544,33 +1565,43 @@ def phase_nofov(device):
     """Non-overlapping FoV ("configs/nofov": 640x480, f=420, K=11, L=256+256,
     P=48, dense marginalization) on the scale-recovery world (lever 1.5 m,
     rot_scale 1.5) with the 1.4x window-scale corruption after frame 20:
-    the gates of tests/test_nofov_pipeline.py's recovery test.  Every
-    camera-1 re-track is recorded with its rotation; the widest one is kept
-    for the kernel check at that call shape."""
+    the gates of tests/test_nofov_pipeline.py's recovery test, and the run
+    held bit for bit to the same run eager.  Every camera-1 re-track is
+    recorded with its rotation; the widest one is kept for the kernel check
+    at that call shape."""
     from sadvio_tpu_torch.pipeline import synthetic
     from sadvio_tpu_torch.pipeline.nofov_mode import NoFovSLAM
 
     world, frames = make_nofov_world(device)
-    slam = NoFovSLAM(world.rig, preset_config("nofov", max_movement_parallax=NOFOV_MAX_PARALLAX),
-                     device=device)
-    calls = _count_calls(slam, ("_track_cam1",))
-    stages = _time_stages(slam, ("_try_bootstrap", "_estimate_scale_window", "_backend"))
-    refine = slam._track_cam1_refine
-    retracks = []
 
-    def recorded(pyr_a, pyr_b, uv_a, init, valid, R_1):
-        retracks.append((_rotation_deg(R_1.cpu().numpy()), (pyr_a, pyr_b, uv_a, init, valid, R_1)))
-        return refine(pyr_a, pyr_b, uv_a, init, valid, R_1)
+    def drive():
+        slam = NoFovSLAM(world.rig,
+                         preset_config("nofov", max_movement_parallax=NOFOV_MAX_PARALLAX),
+                         device=device)
+        calls = _count_calls(slam, ("_track_cam1",))
+        stages = _time_stages(slam, ("_try_bootstrap", "_estimate_scale_window", "_backend"))
+        refine = slam._track_cam1_refine
+        retracks = []
 
-    slam._track_cam1_refine = recorded
-    perturbed = []
+        def recorded(pyr_a, pyr_b, uv_a, init, valid, R_1):
+            retracks.append((_rotation_deg(R_1.cpu().numpy()),
+                             (pyr_a, pyr_b, uv_a, init, valid, R_1)))
+            return refine(pyr_a, pyr_b, uv_a, init, valid, R_1)
 
-    def perturb(i, s):
-        if not perturbed and s.scale_state["applied"] and i >= NOFOV_PERTURB_AFTER:
-            s._apply_scale_window(NOFOV_PERTURB)
-            perturbed.append(i)
+        slam._track_cam1_refine = recorded
+        perturbed = []
 
-    rec = _drive_mode(slam, frames, after_frame=perturb)
+        def perturb(i, s):
+            if not perturbed and s.scale_state["applied"] and i >= NOFOV_PERTURB_AFTER:
+                s._apply_scale_window(NOFOV_PERTURB)
+                perturbed.append(i)
+
+        rec = _drive_mode(slam, frames, after_frame=perturb)
+        return rec, calls, stages, retracks, perturbed
+
+    rec, calls, stages, retracks, perturbed = drive()
+    _held_to_eager("nofov", rec, lambda: drive()[0])
+    slam = rec["slam"]
     i0, outs, L = rec["i0"], rec["outs"], slam.caps.L
     _require(i0 is not None, "nofov: the bootstrap never fired")
     est, gt = rec["est"][i0:], world.gt_t[i0: rec["frames"]]

@@ -27,7 +27,12 @@ def vi_init(R, t, kf_mask, imu_chain: ImuChain, *, optimize_scale: bool = False,
     """Solve gravity direction, velocities, shared bias delta and scale.
 
     Returns a dict with R_align, scale, v (aligned), ba, bg, g_dir, cost0,
-    cost and converged, as the JAX package's vi_init does."""
+    cost and converged, as the JAX package's vi_init does; with
+    ``optimize_scale`` also ``scale_info``, the information on log s at the
+    solve with every other unknown free (the Schur complement of its entry
+    in the normal matrix, float64): holding s at a fraction f of its solve
+    raises the cost by about ``scale_info * (1 - f)**2``, since the
+    position residuals are linear in s."""
     K = R.shape[0]
     pre = imu_chain.pre
     pm = imu_chain.mask
@@ -88,11 +93,18 @@ def vi_init(R, t, kf_mask, imu_chain: ImuChain, *, optimize_scale: bool = False,
     R_align = geo.so3_exp(torch.where(sin_a < 1e-9, torch.zeros_like(w), w))
     n_pairs = ok.sum()
     converged = (torch.sum(r1 * r1) < torch.sum(r0 * r0) + 1e-6) & (n_pairs >= 2)
-    return {
+    out = {
         "R_align": R_align, "scale": torch.exp(log_s), "v": geo.mv(R_align, v),
         "ba": pre.ba_lin[0] + dba, "bg": pre.bg_lin[0] + dbg, "g_dir": g_hat,
         "cost0": c0, "cost": torch.sum(r1 * r1), "converged": converged,
     }
+    if optimize_scale:
+        J = jac(x).double()
+        H = J.T @ J + 1e-8 * torch.eye(dim, dtype=J.dtype, device=dev)
+        h = H[:-1, -1:]
+        z, _ = torch.linalg.solve_ex(H[:-1, :-1], h)
+        out["scale_info"] = H[-1, -1] - (h * z).sum()
+    return out
 
 
 def apply_alignment(state, R_align, scale):

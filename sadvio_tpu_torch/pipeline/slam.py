@@ -40,7 +40,8 @@ PnP sanity gate rejects the correct pose and tracking collapses.
 
 Subclass hooks: ``_bootstrap`` (the first keyframe, before
 ``initialized``), ``_insert_kf``, ``vio_init_kfs``, ``_vi_opt_scale`` (VIInit
-solves the scale too) and ``_last_pyr`` (the latest frame's pyramids).
+solves the scale too), ``_vi_init_chain`` (the IMU links VIInit solves
+over) and ``_last_pyr`` (the latest frame's pyramids).
 ``optimizer: angular*`` switches the window BA to the bearing-vector
 residual.  ``multithreading`` runs the window BA on a second CUDA stream
 (``parallel/pipeline_parallel.py``).  ``run(frames, log_dir, profile)``
@@ -166,6 +167,7 @@ class StereoSLAM:
     MODES = ("bimono", "bimonovio")  # the slam_mode values this class runs
     PROFILE_BOOTSTRAP = True  # run(profile=True) times the bootstrap frames' stages too
     IMU_CAP = 32  # IMU samples per preintegration batch (one captured shape)
+    SCALE_SEEN = 4.0  # a solved scale's information over the solve's cost, at least (C11)
     N_HYP = 48  # PnP RANSAC hypotheses of the frame track
 
     def __init__(self, rig: Rig, config: SLAMConfig, imu_params=None, seed=0, device=None):
@@ -1034,6 +1036,7 @@ class StereoSLAM:
         # detection, stereo track, triangulation and the template cache
         with tr.span("detect_lmk_init", timed=True):
             gap_ok = (not self.kf_ts) or (frame.ts - self.kf_ts[-1]) <= 1.0
+            lmk_before = self.window.lmk_mask
             ins = self._insert_kf(
                 pyr_new, self.tracks, self.window, self.obs, self.imu, self.pre_cur,
                 R_new, t_new, v_pred, self._ts_scalar(frame.ts), self._int_scalar(slot),
@@ -1041,8 +1044,14 @@ class StereoSLAM:
                 ext_det=self._csv_det(frame))
             self.tracks, self.window, self.obs, self.imu = ins[:4]
             gm_counts = gm_pack = None
+            # the window's landmarks after the insertion and those it
+            # triangulated (the slots new to the map, less the archive
+            # resurrections): they ride the keyframe's state copy below
+            lmk_after = self.window.lmk_mask
+            lmk_counts = torch.stack([lmk_after.sum(), (lmk_after & ~lmk_before).sum()])
             if self.global_map_state is not None:
                 self.lmk_desc, gm_counts, gm_pack = ins[4:]
+                lmk_counts[1] -= gm_counts[0]
             self.n_kf += 1
             self.kf_ts.append(frame.ts)
             self.kf_cov.append(self._cov_h)
@@ -1087,7 +1096,8 @@ class StereoSLAM:
                 self._run_vi_init()
         w = self.window
         parts = [w.R[slot].reshape(-1), w.t[slot], w.v[slot], w.ba[slot], w.bg[slot],
-                 torch.stack([n_ovf.float(), degen.float(), stats["cost"].float()])]
+                 torch.stack([n_ovf.float(), degen.float(), stats["cost"].float()]),
+                 lmk_counts.float()]
         if gm_counts is not None:
             parts.append(gm_counts.float())
         with tr.span("kf.wait"):
@@ -1101,14 +1111,16 @@ class StereoSLAM:
             prof.counts["keep_overflow_lmk"] += 1
         out["marg_degenerate"] = bool(pk[22] > 0.5)
         out["ba_cost"] = float(pk[23])
+        with tr.span("kf.landmarks", int(pk[24])), tr.span("kf.born", int(pk[25])):
+            pass
         if gm_counts is not None:
-            out["gm_resurrected"] = int(pk[24])
+            out["gm_resurrected"] = int(pk[26])
             # loop closure: a burst of descriptor resurrections is a revisit
             # signal.  The hit count (riding the copy above) gates the copy
             # of the per-detection pack, so other keyframes never pay it;
             # the PnP warm-starts at the post-BA keyframe pose
             if (self.cfg.pose_graph and self.archived_kf
-                    and int(pk[25]) >= self.cfg.lc_min_hits):
+                    and int(pk[27]) >= self.cfg.lc_min_hits):
                 lc = self._try_loop_closure(gm_pack, frame.ts, pk[:9].reshape(3, 3), pk[9:12])
                 out["lc_diag"] = self._lc_diag
                 if lc is not None:
@@ -1130,11 +1142,22 @@ class StereoSLAM:
         """VI bootstrap: gravity/velocity/shared-bias (and, with
         ``_vi_opt_scale``, scale) solve over the window, then rotate and
         rescale the map gravity-down and run a full VI window BA.  A
-        non-converged solve or |ba| > 1 m/s^2 is rejected and retried at
-        the next keyframe."""
-        res = viinit.vi_init(self.window.R, self.window.t, self.window.kf_mask, self.imu,
-                             optimize_scale=self._vi_opt_scale, iters=20)
-        ok_h = torch.cat([res["converged"].float()[None], res["ba"]]).cpu().numpy()
+        non-converged solve, |ba| > 1 m/s^2 or a solved scale that the
+        window does not see is rejected and retried at the next keyframe.
+
+        The scale is seen when holding it at half its solve would at least
+        double the cost, gravity, velocities and biases free: information
+        on log s at least ``SCALE_SEEN`` times the cost (a deviation from
+        the JAX package, ROADMAP C11).  Where the IMU links do not see the
+        scale (too little acceleration, or a chain cut short) the cost is
+        flat in it, and the solve may settle anywhere, down to nearly 0,
+        with the accelerometer bias inside its gate."""
+        res = viinit.vi_init(self.window.R, self.window.t, self.window.kf_mask,
+                             self._vi_init_chain(), optimize_scale=self._vi_opt_scale, iters=20)
+        ok = res["converged"]
+        if self._vi_opt_scale:
+            ok = ok & (res["scale_info"] >= self.SCALE_SEEN * res["cost"])
+        ok_h = torch.cat([ok.float()[None], res["ba"]]).cpu().numpy()
         if not ok_h[0] > 0.5 or np.linalg.norm(ok_h[1:4]) > 1.0:
             return
         K = self.caps.K
@@ -1154,6 +1177,11 @@ class StereoSLAM:
         k = self.n_kf - 1
         self.R_cur, self.t_cur, self.v_cur = self.window.R[k], self.window.t[k], self.window.v[k]
         self.pre_cur = self.pre_cur.replace(ba_lin=self.window.ba[k], bg_lin=self.window.bg[k])
+
+    def _vi_init_chain(self):
+        """The IMU links VIInit solves over: the window's chain as the BA
+        has it."""
+        return self.imu
 
     def _probe_archive(self, img0, R_seed, t_seed):
         """Detect fresh features and re-associate them against the archive

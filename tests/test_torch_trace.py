@@ -92,11 +92,14 @@ def test_every_frame_has_one_record_and_spans_nest_in_their_frame(run):
         p = by_index[int(sp["parent"][k])]  # every parent is a recorded span
         assert sp["frame"][k] == sp["frame"][p] >= 0  # the frame's number, shared
         assert sp["t0"][p] <= sp["t0"][k] and sp["t1"][k] <= sp["t1"][p]
-    # the layer boundaries of the frame loop and the stages; only a graph
-    # launch carries a count, and no graph is launched on the CPU
+    # the layer boundaries of the frame loop and the stages; a count rides
+    # only a graph launch (no graph is launched on the CPU) and a keyframe's
+    # landmark spans
     assert {"upload", "imu_preint", "_preint", "_pyramids", "_frontend", "kf.wait",
-            "_insert_kf", "_backend", "vi_init"} <= set(names)
-    assert (sp["count"] == 0).all()
+            "_insert_kf", "_backend", "vi_init", "kf.landmarks", "kf.born"} <= set(names)
+    counted = np.isin(names, ["kf.landmarks", "kf.born"])
+    assert (sp["count"][~counted] == 0).all()
+    assert (sp["count"][names == "kf.landmarks"] > 0).all()
 
 
 def test_profile_mode_fills_the_profiler_under_its_old_names(run):
